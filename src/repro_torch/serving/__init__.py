@@ -1,0 +1,24 @@
+"""Serving runtime of the port: the continuous-batching engine over a
+refcounted, prefix-sharing paged KV pool.
+
+The host side — request lifecycle, pool, scheduler, metrics, tracing — is
+a copy of ``repro.serving``'s jax-free modules, so both packages plan the
+same steps for the same traffic.  The device side is the port's own:
+``engine.ContinuousBatchingEngine`` runs each iteration as one mixed
+forward through ``models.transformer.paged_mixed_step``.
+"""
+
+from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: F401
+                                        GenerationConfig)
+from repro_torch.serving.kv_pool import (PagedKVPool, PoolOOM,  # noqa: F401
+                                         SINK_PAGE)
+from repro_torch.serving.metrics import (Calibration,  # noqa: F401
+                                         EngineStats, MetricsRegistry)
+from repro_torch.serving.request import (FinishReason, Request,  # noqa: F401
+                                         RequestState, SamplingParams,
+                                         Sequence)
+from repro_torch.serving.scheduler import (CostModel,  # noqa: F401
+                                           IterationScheduler,
+                                           SchedulerConfig, StepPlan)
+from repro_torch.serving.tracing import (NULL_TRACER,  # noqa: F401
+                                         ChromeTracer)
