@@ -8,16 +8,25 @@ Phases, each printed as one JSON object per line:
   1. build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
   2. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes, with its time, the plain version's time, one
-              PyTorch library call's time and the card's bound
+              PyTorch library call's time and the card's bound (each time
+              the median of 5 runs of 20 launches, with its spread); the
+              quantized kernels (int8/int4 factors, int8 pages) also
+              bitwise against the float kernels on the dequantized inputs
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels; then
               the same path with 128 Monarch blocks, whose intermediate is
-              too wide for the fused kernel, through the staged bdmm branch
+              too wide for the fused kernel, through the staged bdmm branch;
+              then the compressed decode path (fused QKV, int8 factors,
+              int8 KV pages) through the quantized kernels: quantization on
+              the card against the CPU, a profiled serve, an int4 serve and
+              a 128-block int8 serve through the staged bdmm_q branch
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits, then greedy tokens of
               three engine traces (plain; a tiny pool that preempts;
-              shared prefixes that fork pages copy-on-write)
+              shared prefixes that fork pages copy-on-write); again with
+              int8 factors; and with int8 factors and int8 KV pages (stored
+              pages and scales after one step, and token agreement)
 
 It exits non-zero on the first failed check.  The last lines are the
 per-kernel summary, the card's name and power limit from ``nvidia-smi``,
@@ -32,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -46,16 +56,39 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17-19
 # to 6.3e-7 relative; 1e-5 leaves a factor 16 over them, while one bf16
 # rounding of the activations (2**-8 = 3.9e-3 relative) is 400 times larger
 PARITY_REL_TOL = 1e-5
+# card vs CPU with int8 KV pages, one full-width mixed step.  The first
+# layer's K/V rows differ by ~1e-7 relative before they are quantized, so
+# a value at a rounding tie is stored one int8 step apart (a step is 1/127
+# of its head's range): that layer's values are held within one step and
+# its scales within 1e-5 relative.  Each such step moves the next layer's
+# rows by far more than 1e-7, so deeper layers drift further: on the CPU
+# alone, one ulp on the embeddings moves the deepest pages by 2 steps,
+# their scales by ~5e-3 and the logits by 1.7e-3 relative (chip_smoke
+# prints that reference beside the card's reading).  The card read 2.9e-3
+# on the logits (H100 SXM); the limit leaves a factor 10 over it.
+INT8_KV_SCALE_REL_TOL = 1e-5
+INT8_KV_STEP_REL_TOL = 3e-2
+# greedy tokens over whole traces with int8 KV: the reference's own bar
+# for int8 pages (tests/test_kv_quant.py:352)
+INT8_KV_TOKEN_AGREEMENT = 0.95
 
+KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
+           "monarch_fused_q", "bdmm_q", "paged_attention_span_q")
 REPLACES = {
     "monarch_fused": "src/repro/kernels/monarch.py:58",
     "bdmm": "src/repro/kernels/bdmm.py:49",
     "paged_attention_span": "src/repro/kernels/paged.py:196",
+    "monarch_fused_q": "src/repro/kernels/monarch.py:115",
+    "bdmm_q": "src/repro/kernels/bdmm.py:87",
+    "paged_attention_span_q": "src/repro/kernels/paged.py:152",
 }
 SOURCES = {
     "monarch_fused": "src/repro_torch/kernels/csrc/monarch.cu",
     "bdmm": "src/repro_torch/kernels/csrc/bdmm.cu",
     "paged_attention_span": "src/repro_torch/kernels/csrc/paged.cu",
+    "monarch_fused_q": "src/repro_torch/kernels/csrc/monarch.cu",
+    "bdmm_q": "src/repro_torch/kernels/csrc/bdmm.cu",
+    "paged_attention_span_q": "src/repro_torch/kernels/csrc/paged.cu",
 }
 
 
@@ -87,19 +120,29 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import tree_to
+    from repro_torch import tree_map, tree_to
     from repro_torch.configs import get_config
     from repro_torch.core.monarch import (init_monarch, make_dims,
                                           monarch_to_dense)
+    from repro_torch.core.quant import (dequantize_kv_pages,
+                                        dequantize_monarch, kv_page_bytes,
+                                        quantize_kv_page, quantize_kv_write,
+                                        quantize_monarch)
     from repro_torch.kernels import build_all, launches, reset_launches
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bdmm import bdmm, bdmm_plain
+    from repro_torch.kernels.bdmm import (bdmm, bdmm_plain, bdmm_q,
+                                          bdmm_q_plain)
     from repro_torch.kernels.monarch import (fused_fits, monarch_fused,
-                                             monarch_fused_plain)
+                                             monarch_fused_plain,
+                                             monarch_fused_q,
+                                             monarch_fused_q_plain)
     from repro_torch.kernels.paged import (GLOBAL_WINDOW,
                                            paged_attention_span,
                                            paged_attention_span_plain)
     from repro_torch.models import transformer as T
+    from repro_torch.models.decode_path import (decode_weight_bytes,
+                                                prepare_decode_params)
+    from repro_torch.models.fuse import fuse_linears
     from repro_torch.serving import ContinuousBatchingEngine, SamplingParams
 
     # fp32 products in full precision everywhere (PyTorch's default for
@@ -116,18 +159,37 @@ def main() -> int:
           "per_source_seconds": per_source, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    def time_ms(fn, iters: int = 20) -> float:
+    def time_ms(fn, iters: int = 20, repeats: int = 5) -> tuple[float, float]:
+        """Median ms per launch over ``repeats`` timed loops of ``iters``
+        launches, and the spread (max - min) / median of those loops."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / iters
+        runs = []
+        for _ in range(repeats):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(iters):
+                fn()
+            b.record()
+            b.synchronize()
+            runs.append(a.elapsed_time(b) / iters)
+        runs.sort()
+        med = runs[len(runs) // 2]
+        return med, (runs[-1] - runs[0]) / med
+
+    def timings(**fns) -> dict:
+        """``<name>_ms`` and ``<name>_spread`` for each function."""
+        out = {}
+        for name, fn in fns.items():
+            out[f"{name}_ms"], out[f"{name}_spread"] = time_ms(fn)
+        return out
+
+    def summary_entry(t: dict, bms: float, by: str) -> dict:
+        return {"ms": t["kernel_ms"], "spread": t["kernel_spread"],
+                "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                "bound_ms": bms, "bound_by": by}
 
     def close(out, ref, dtype_name: str) -> tuple[float, bool]:
         o, r = out.float(), ref.float()
@@ -137,12 +199,15 @@ def main() -> int:
             (err <= tol + tol * r.abs()).all())
         return float(err.max()) if err.numel() else 0.0, ok
 
-    errs = {k: 0.0 for k in REPLACES}
+    errs = {k: 0.0 for k in KERNELS}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def dn_of(dt) -> str:
+        return str(dt).split(".")[1]
 
     # -- 2a. monarch_fused at gpt2-medium's three Monarch shapes -------------
     gpt2 = get_config("gpt2-medium")
@@ -160,7 +225,7 @@ def main() -> int:
         params = L.numel() + R.numel()
         for T_ in (1, 8, 64, 512):
             for xdt in (torch.float32, torch.bfloat16):
-                dn = str(xdt).split(".")[1]
+                dn = dn_of(xdt)
                 x = randn(T_, din, dtype=xdt)
                 err, ok = close(monarch_fused(x, L, R),
                                 monarch_fused_plain(x, L, R), dn)
@@ -174,10 +239,9 @@ def main() -> int:
                       "shape": name, "T": T_, "x_dtype": dn,
                       "factor_dtype": "float32", "max_abs_err": err,
                       "tol": TOL[dn],
-                      "kernel_ms": time_ms(lambda: monarch_fused(x, L, R)),
-                      "plain_ms": time_ms(
-                          lambda: monarch_fused_plain(x, L, R)),
-                      "library_ms": time_ms(lambda: torch.matmul(x, W)),
+                      **timings(kernel=lambda: monarch_fused(x, L, R),
+                                plain=lambda: monarch_fused_plain(x, L, R),
+                                library=lambda: torch.matmul(x, W)),
                       "bound_ms": bms, "bound_by": by})
                 require(ok, f"monarch_fused {name} T={T_} {dn}: err {err}")
 
@@ -188,7 +252,7 @@ def main() -> int:
     sf = init_monarch(gen, sd, device=dev)
     for T_ in (8, 512):
         for xdt in (torch.float32, torch.bfloat16):
-            dn = str(xdt).split(".")[1]
+            dn = dn_of(xdt)
             x3 = randn(T_, sd.k, sd.p, dtype=xdt)
             w = sf["L"]
             err, ok = close(bdmm(x3, w), bdmm_plain(x3, w), dn)
@@ -201,9 +265,9 @@ def main() -> int:
             emit({"phase": "kernel", "kernel": "bdmm", "shape": "direct",
                   "x": [T_, sd.k, sd.p], "w": list(w.shape), "x_dtype": dn,
                   "max_abs_err": err, "tol": TOL[dn],
-                  "kernel_ms": time_ms(lambda: bdmm(x3, w)),
-                  "plain_ms": time_ms(lambda: bdmm_plain(x3, w)),
-                  "library_ms": time_ms(lambda: torch.matmul(xt, wt)),
+                  **timings(kernel=lambda: bdmm(x3, w),
+                            plain=lambda: bdmm_plain(x3, w),
+                            library=lambda: torch.matmul(xt, wt)),
                   "bound_ms": bms, "bound_by": by})
             require(ok, f"bdmm direct T={T_} {dn}: err {err}")
             x = randn(T_, sd.din, dtype=xdt)
@@ -237,13 +301,38 @@ def main() -> int:
         "prefill512": (512, [0, 512, 100, 0, 300, 500, 0, 700],
                        [512, 512, 200, 65, 1, 300, 0, 128]),
     }
+
+    def span_work(starts, spans, win) -> tuple[int, int]:
+        """Pages and attended (query, key) pairs this data needs."""
+        n_pages, n_pairs = 0, 0
+        for b in range(B):
+            if spans[b] == 0:
+                continue
+            lo = max(0, starts[b] - win + 1)
+            hi = starts[b] + spans[b] - 1
+            n_pages += min(hi // pg, MP - 1) - lo // pg + 1
+            for i in range(spans[b]):
+                qp = starts[b] + i
+                n_pairs += qp - max(0, qp - win + 1) + 1
+        return n_pages, n_pairs
+
+    def sdpa_args(q, kp, vp, st, S, win):
+        """Library yardstick: SDPA over pre-gathered contiguous KV."""
+        T_all = MP * pg
+        kk = kp[pt.long()].reshape(B, T_all, KV, hd).transpose(1, 2)
+        vv = vp[pt.long()].reshape(B, T_all, KV, hd).transpose(1, 2)
+        t = torch.arange(T_all, device=dev)[None, None, :]
+        qpos = st.long()[:, None] + torch.arange(S, device=dev)[None]
+        mask = ((t <= qpos[..., None]) & (qpos[..., None] - t < win))[:, None]
+        return q.transpose(1, 2), kk, vv, mask
+
     paged_summary = None
     for cname, (S, starts, spans) in cases.items():
         st = torch.tensor(starts, dtype=torch.int32, device=dev)
         sl = torch.tensor(spans, dtype=torch.int32, device=dev)
         for win in (GLOBAL_WINDOW, 48):
             for dt in (torch.float32, torch.bfloat16):
-                dn = str(dt).split(".")[1]
+                dn = dn_of(dt)
                 q = randn(B, S, H, hd, dtype=dt)
                 kp, vp = k32.to(dt), v32.to(dt)
                 args = (q, kp, vp, pt, st, sl, win)
@@ -251,41 +340,22 @@ def main() -> int:
                                 paged_attention_span_plain(*args), dn)
                 errs["paged_attention_span"] = max(
                     errs["paged_attention_span"], err)
-                # pages and attended (query, key) pairs this data needs
-                n_pages, n_pairs = 0, 0
-                for b in range(B):
-                    if spans[b] == 0:
-                        continue
-                    lo = max(0, starts[b] - win + 1)
-                    hi = starts[b] + spans[b] - 1
-                    n_pages += min(hi // pg, MP - 1) - lo // pg + 1
-                    for i in range(spans[b]):
-                        qp = starts[b] + i
-                        n_pairs += qp - max(0, qp - win + 1) + 1
+                n_pages, n_pairs = span_work(starts, spans, win)
                 eb = q.element_size()
                 bms, by = bound_ms(
                     2 * B * S * H * hd * eb + 2 * n_pages * pg * KV * hd * eb,
                     4 * hd * H * n_pairs, all_bf16=dt == torch.bfloat16)
-                # library yardstick: SDPA over pre-gathered contiguous KV
-                T_all = MP * pg
-                kk = kp[pt.long()].reshape(B, T_all, KV, hd).transpose(1, 2)
-                vv = vp[pt.long()].reshape(B, T_all, KV, hd).transpose(1, 2)
-                qq = q.transpose(1, 2)
-                t = torch.arange(T_all, device=dev)[None, None, :]
-                qpos = st.long()[:, None] + torch.arange(S, device=dev)[None]
-                mask = ((t <= qpos[..., None])
-                        & (qpos[..., None] - t < win))[:, None]
+                qq, kk, vv, mask = sdpa_args(q, kp, vp, st, S, win)
                 line = {
                     "phase": "kernel", "kernel": "paged_attention_span",
                     "case": cname, "S": S, "window": win, "dtype": dn,
                     "B": B, "H": H, "KV": KV, "hd": hd, "page": pg,
                     "pages_read": n_pages, "max_abs_err": err,
                     "tol": TOL[dn],
-                    "kernel_ms": time_ms(lambda: paged_attention_span(*args)),
-                    "plain_ms": time_ms(
-                        lambda: paged_attention_span_plain(*args)),
-                    "library_ms": time_ms(
-                        lambda: F.scaled_dot_product_attention(
+                    **timings(
+                        kernel=lambda: paged_attention_span(*args),
+                        plain=lambda: paged_attention_span_plain(*args),
+                        library=lambda: F.scaled_dot_product_attention(
                             qq, kk, vv, attn_mask=mask)),
                     "bound_ms": bms, "bound_by": by}
                 emit(line)
@@ -300,7 +370,7 @@ def main() -> int:
     for name, (din, dout) in layer_shapes.items():
         Lb, Rb = (factors[name][k].to(bf16) for k in ("L", "R"))
         for xdt in (f32, bf16):
-            dn = str(xdt).split(".")[1]
+            dn = dn_of(xdt)
             x = randn(8, din, dtype=xdt)
             err, ok = close(monarch_fused(x, Lb, Rb),
                             monarch_fused_plain(x, Lb, Rb), dn)
@@ -312,7 +382,7 @@ def main() -> int:
             require(ok, f"monarch_fused bf16 factors {name} {dn}: {err}")
     wb = sf["L"].to(bf16)
     for xdt in (f32, bf16):
-        dn = str(xdt).split(".")[1]
+        dn = dn_of(xdt)
         x3 = randn(64, sd.k, sd.p, dtype=xdt)
         err, ok = close(bdmm(x3, wb), bdmm_plain(x3, wb), dn)
         errs["bdmm"] = max(errs["bdmm"], err)
@@ -324,7 +394,7 @@ def main() -> int:
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     sl = torch.tensor(spans, dtype=torch.int32, device=dev)
     for qdt, kdt in ((f32, bf16), (bf16, f32)):
-        dn = str(qdt).split(".")[1]
+        dn = dn_of(qdt)
         args = (randn(B, S, H, hd, dtype=qdt), k32.to(kdt), v32.to(kdt), pt,
                 st, sl, 48)
         err, ok = close(paged_attention_span(*args),
@@ -332,78 +402,269 @@ def main() -> int:
         errs["paged_attention_span"] = max(errs["paged_attention_span"], err)
         emit({"phase": "kernel_dtypes", "kernel": "paged_attention_span",
               "S": S, "window": 48, "q_dtype": dn,
-              "page_dtype": str(kdt).split(".")[1], "max_abs_err": err,
+              "page_dtype": dn_of(kdt), "max_abs_err": err,
               "tol": TOL[dn]})
         require(ok, f"paged q {dn} pages {kdt}: {err}")
+
+    # -- 2e. monarch_fused_q: int8/int4 factors at gpt2-medium's shapes, the
+    # fused QKV projection included -------------------------------------------
+    qkv = fuse_linears([init_monarch(gen, make_dims(1024, 1024), device=dev)
+                        for _ in range(3)])
+    require(tuple(qkv["L"].shape) == (32, 96, 32)
+            and tuple(qkv["R"].shape) == (96, 32, 32),
+            "the fused QKV pair is L (32, 96, 32), R (96, 32, 32)")
+    qfactors = {"qkv_1024x3072": qkv, **factors}
+    for name, f in qfactors.items():
+        k, q_, p = f["L"].shape
+        s = f["R"].shape[1]
+        din, dout = k * p, q_ * s
+        require(fused_fits((k, q_, p), (q_, s, k)),
+                f"quantized {name} must take the fused branch")
+        for bits in (8, 4):
+            qc = quantize_monarch(f, bits)
+            deq = dequantize_monarch(qc, k, p)
+            qargs = (qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
+            stored = qc["Lq"].numel() + qc["Rq"].numel()
+            n_scales = qc["Ls"].numel() + qc["Rs"].numel()
+            params = f["L"].numel() + f["R"].numel()
+            for xdt in (f32, bf16):
+                W = monarch_to_dense(deq["L"], deq["R"]).to(xdt)
+                dn = dn_of(xdt)
+                for T_ in (1, 8, 64, 512):
+                    x = randn(T_, din, dtype=xdt)
+                    y = monarch_fused_q(x, *qargs)
+                    err, ok = close(y, monarch_fused_q_plain(x, *qargs), dn)
+                    same = torch.equal(y, monarch_fused(x, deq["L"],
+                                                        deq["R"]))
+                    errs["monarch_fused_q"] = max(errs["monarch_fused_q"],
+                                                  err)
+                    bms, by = bound_ms(
+                        T_ * (din + dout) * x.element_size() + stored
+                        + 4 * n_scales, 2 * T_ * params, all_bf16=False)
+                    emit({"phase": "kernel", "kernel": "monarch_fused_q",
+                          "shape": name, "bits": bits, "T": T_,
+                          "x_dtype": dn, "max_abs_err": err, "tol": TOL[dn],
+                          "bitwise_vs_monarch_fused": same,
+                          **timings(
+                              kernel=lambda: monarch_fused_q(x, *qargs),
+                              plain=lambda: monarch_fused_q_plain(x, *qargs),
+                              library=lambda: torch.matmul(x, W)),
+                          "bound_ms": bms, "bound_by": by})
+                    require(ok and same, f"monarch_fused_q {name} int{bits} "
+                            f"T={T_} {dn}: err {err}, bitwise {same}")
+
+    # -- 2f. bdmm_q directly and through the staged monarch_mm_q branch ------
+    for bits in (8, 4):
+        qc = quantize_monarch(sf, bits)
+        deq = dequantize_monarch(qc, sd.k, sd.p)
+        for T_ in (8, 512):
+            for xdt in (f32, bf16):
+                dn = dn_of(xdt)
+                x3 = randn(T_, sd.k, sd.p, dtype=xdt)
+                y = bdmm_q(x3, qc["Lq"], qc["Ls"])
+                err, ok = close(y, bdmm_q_plain(x3, qc["Lq"], qc["Ls"]), dn)
+                same = torch.equal(y, bdmm(x3, deq["L"]))
+                errs["bdmm_q"] = max(errs["bdmm_q"], err)
+                xt = x3.transpose(0, 1)
+                wt = deq["L"].to(xdt).transpose(1, 2)
+                bms, by = bound_ms(
+                    T_ * sd.k * (sd.p + sd.q) * x3.element_size()
+                    + qc["Lq"].numel() + 4 * qc["Ls"].numel(),
+                    2 * T_ * deq["L"].numel(), all_bf16=False)
+                emit({"phase": "kernel", "kernel": "bdmm_q",
+                      "shape": "direct", "bits": bits,
+                      "x": [T_, sd.k, sd.p], "w": list(qc["Lq"].shape),
+                      "x_dtype": dn, "max_abs_err": err, "tol": TOL[dn],
+                      "bitwise_vs_bdmm": same,
+                      **timings(
+                          kernel=lambda: bdmm_q(x3, qc["Lq"], qc["Ls"]),
+                          plain=lambda: bdmm_q_plain(x3, qc["Lq"], qc["Ls"]),
+                          library=lambda: torch.matmul(xt, wt)),
+                      "bound_ms": bms, "bound_by": by})
+                require(ok and same, f"bdmm_q int{bits} T={T_} {dn}: err "
+                        f"{err}, bitwise {same}")
+                x = randn(T_, sd.din, dtype=xdt)
+                qargs = (qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
+                before = launches()
+                y = ops.monarch_mm_q(x, *qargs)
+                after = launches()
+                require(after["bdmm_q"] - before["bdmm_q"] == 2
+                        and after["monarch_fused_q"]
+                        == before["monarch_fused_q"],
+                        "staged monarch_mm_q must launch bdmm_q twice")
+                err, ok = close(y, monarch_fused_q_plain(x, *qargs), dn)
+                errs["bdmm_q"] = max(errs["bdmm_q"], err)
+                emit({"phase": "kernel", "kernel": "bdmm_q",
+                      "shape": "staged monarch_mm_q 4096x4096 nblocks=128",
+                      "bits": bits, "T": T_, "x_dtype": dn,
+                      "max_abs_err": err, "tol": TOL[dn]})
+                require(ok, f"staged monarch_mm_q int{bits} T={T_} {dn}: "
+                        f"err {err}")
+
+    # -- 2g. the span kernel over int8 pages ---------------------------------
+    kq, ks = quantize_kv_page(k32)
+    vq, vs = quantize_kv_page(v32)
+    kd, vd = dequantize_kv_pages(kq, ks), dequantize_kv_pages(vq, vs)
+    # page quantization on the card is bitwise the CPU's on the same rows
+    kq_cpu, ks_cpu = quantize_kv_page(k32.cpu())
+    same = (torch.equal(kq.cpu(), kq_cpu) and torch.equal(ks.cpu(), ks_cpu)
+            and torch.equal(kd.cpu(), dequantize_kv_pages(kq_cpu, ks_cpu)))
+    emit({"phase": "kv_quant", "pages": list(k32.shape),
+          "bitwise_card_vs_cpu": same})
+    require(same, "int8 KV page quantization differs card vs CPU")
+    paged_q_summary = None
+    for cname, (S, starts, spans) in cases.items():
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        sl = torch.tensor(spans, dtype=torch.int32, device=dev)
+        for win in (GLOBAL_WINDOW, 48):
+            for dt in (f32, bf16):
+                dn = dn_of(dt)
+                q = randn(B, S, H, hd, dtype=dt)
+                args = (q, kq, vq, pt, st, sl, win)
+                sc = dict(k_scales=ks, v_scales=vs)
+                out = paged_attention_span(*args, **sc)
+                err, ok = close(out, paged_attention_span_plain(
+                    *args, ks, vs), dn)
+                same = torch.equal(out, paged_attention_span(
+                    q, kd, vd, pt, st, sl, win))
+                errs["paged_attention_span_q"] = max(
+                    errs["paged_attention_span_q"], err)
+                n_pages, n_pairs = span_work(starts, spans, win)
+                eb = q.element_size()
+                bms, by = bound_ms(
+                    2 * B * S * H * hd * eb + 2 * n_pages * pg * KV * hd
+                    + 2 * n_pages * KV * 4, 4 * hd * H * n_pairs,
+                    all_bf16=False)
+                qq, kk, vv, mask = sdpa_args(q, kd.to(dt), vd.to(dt), st, S,
+                                             win)
+                line = {
+                    "phase": "kernel", "kernel": "paged_attention_span_q",
+                    "case": cname, "S": S, "window": win, "q_dtype": dn,
+                    "page_dtype": "int8", "pages_read": n_pages,
+                    "max_abs_err": err, "tol": TOL[dn],
+                    "bitwise_vs_paged_attention_span": same,
+                    **timings(
+                        kernel=lambda: paged_attention_span(*args, **sc),
+                        plain=lambda: paged_attention_span_plain(
+                            *args, ks, vs),
+                        library=lambda: F.scaled_dot_product_attention(
+                            qq, kk, vv, attn_mask=mask)),
+                    "bound_ms": bms, "bound_by": by}
+                emit(line)
+                require(ok and same, f"int8 paged {cname} window={win} {dn}: "
+                        f"err {err}, bitwise {same}")
+                if (cname == "decode" and win == GLOBAL_WINDOW
+                        and dt == bf16):
+                    paged_q_summary = line
 
     # -- per-kernel summary: one layer of a bf16 decode step (T = 8) --------
     proj = [(1024, 1024)] * 4 + [(1024, 4096), (4096, 1024)]
     T_dec = 8
-    xs = [randn(T_dec, din, dtype=torch.bfloat16) for din, _ in proj]
 
-    def layer_factors(nblocks):
-        return [init_monarch(gen, make_dims(din, dout, policy="paper",
-                                            nblocks=nblocks), device=dev)
-                for din, dout in proj]
+    def layer_factors(nblocks, fused_qkv=False):
+        fs = [init_monarch(gen, make_dims(din, dout, policy="paper",
+                                          nblocks=nblocks), device=dev)
+              for din, dout in proj]
+        return [fuse_linears(fs[:3])] + fs[3:] if fused_qkv else fs
 
-    def layer_bound(fs, staged: bool):
-        """bf16 activations in and out of each launch, fp32 factors."""
+    def layer_bound(fs, staged: bool, weight_bytes: float = 4):
+        """bf16 activations in and out of each launch; factors at
+        ``weight_bytes`` a weight, plus fp32 block scales when
+        quantized."""
         n_bytes = flops = 0
         for f in fs:
             k, q, p = f["L"].shape
             s = f["R"].shape[1]
             n = f["L"].numel() + f["R"].numel()
             acts = k * p + q * s + (2 * k * q if staged else 0)
-            n_bytes += T_dec * acts * 2 + n * 4
+            n_bytes += T_dec * acts * 2 + n * weight_bytes
+            if weight_bytes < 4:
+                n_bytes += 4 * (k + q)
             flops += 2 * T_dec * n
         return bound_ms(n_bytes, flops, all_bf16=False)
 
+    def run_layer(fn, fs, xs):
+        return lambda: [fn(x, f) for x, f in zip(xs, fs)]
+
     summary = {}
+    xs = [randn(T_dec, din, dtype=bf16) for din, _ in proj]
     fs = layer_factors(None)
-    dense = [monarch_to_dense(f["L"], f["R"]).to(torch.bfloat16) for f in fs]
-    bms, by = layer_bound(fs, staged=False)
-    summary["monarch_fused"] = {
-        "ms": time_ms(lambda: [monarch_fused(x, f["L"], f["R"])
-                               for x, f in zip(xs, fs)]),
-        "plain_ms": time_ms(lambda: [monarch_fused_plain(x, f["L"], f["R"])
-                                     for x, f in zip(xs, fs)]),
-        "library_ms": time_ms(lambda: [torch.matmul(x, W)
-                                       for x, W in zip(xs, dense)]),
-        "bound_ms": bms, "bound_by": by}
+    dense = [monarch_to_dense(f["L"], f["R"]).to(bf16) for f in fs]
+    t = timings(
+        kernel=run_layer(lambda x, f: monarch_fused(x, f["L"], f["R"]),
+                         fs, xs),
+        plain=run_layer(lambda x, f: monarch_fused_plain(x, f["L"], f["R"]),
+                        fs, xs),
+        library=run_layer(torch.matmul, dense, xs))
+    summary["monarch_fused"] = summary_entry(t, *layer_bound(fs, False))
 
     fs = layer_factors(128)
     require(not any(fused_fits(f["L"].shape, f["R"].shape) for f in fs),
             "every nblocks=128 projection must take the staged branch")
-    fs_bf16 = [{k: v.to(torch.bfloat16) for k, v in f.items()} for f in fs]
+    fs_bf16 = [{k: v.to(bf16) for k, v in f.items()} for f in fs]
 
-    def staged(fn, factors):
+    def staged(fn, factors, xs, weights=("L", "R")):
         def run():
             for x, f in zip(xs, factors):
-                k, _, p = f["L"].shape
-                u = fn(x.view(-1, k, p), f["L"])
-                fn(u.transpose(1, 2), f["R"])
+                k = f["Ls" if "Ls" in f else "L"].shape[0]
+                u = fn(x.view(T_dec, k, -1), f, weights[0])
+                fn(u.transpose(1, 2), f, weights[1])
         return run
 
-    def bmm(x, w):  # one batched torch.matmul per stage
-        return torch.matmul(x.transpose(0, 1), w.transpose(1, 2)
+    def bmm(x, f, w):  # one batched torch.matmul per stage
+        return torch.matmul(x.transpose(0, 1), f[w].transpose(1, 2)
                             ).transpose(0, 1)
 
-    bms, by = layer_bound(fs, staged=True)
-    summary["bdmm"] = {"ms": time_ms(staged(bdmm, fs)),
-                       "plain_ms": time_ms(staged(bdmm_plain, fs)),
-                       "library_ms": time_ms(staged(bmm, fs_bf16)),
-                       "bound_ms": bms, "bound_by": by}
-    summary["paged_attention_span"] = {
-        k: paged_summary[k2] for k, k2 in (
-            ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-            ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
-            ("bound_by", "bound_by"))}
+    t = timings(kernel=staged(lambda x, f, w: bdmm(x, f[w]), fs, xs),
+                plain=staged(lambda x, f, w: bdmm_plain(x, f[w]), fs, xs),
+                library=staged(bmm, fs_bf16, xs))
+    summary["bdmm"] = summary_entry(t, *layer_bound(fs, True))
+    summary["paged_attention_span"] = summary_entry(
+        paged_summary, paged_summary["bound_ms"], paged_summary["bound_by"])
+
+    # the quantized decode layer: fused QKV + wo + w1 + w2, int8 factors
+    xq = [randn(T_dec, 1024, dtype=bf16)] + xs[3:]
+    fs = layer_factors(None, fused_qkv=True)
+    qfs = [quantize_monarch(f, 8) for f in fs]
+    deqs = [dequantize_monarch(c, f["L"].shape[0], f["L"].shape[2])
+            for c, f in zip(qfs, fs)]
+    dense = [monarch_to_dense(d["L"], d["R"]).to(bf16) for d in deqs]
+
+    def qcall(fn):
+        return lambda x, c: fn(x, c["Lq"], c["Ls"], c["Rq"], c["Rs"])
+
+    t = timings(kernel=run_layer(qcall(monarch_fused_q), qfs, xq),
+                plain=run_layer(qcall(monarch_fused_q_plain), qfs, xq),
+                library=run_layer(torch.matmul, dense, xq))
+    summary["monarch_fused_q"] = summary_entry(
+        t, *layer_bound(fs, False, weight_bytes=1))
+
+    fs = layer_factors(128, fused_qkv=True)
+    qfs = [quantize_monarch(f, 8) for f in fs]
+    deqs_bf16 = [{k: v.to(bf16) for k, v in dequantize_monarch(
+        c, f["L"].shape[0], f["L"].shape[2]).items()}
+        for c, f in zip(qfs, fs)]
+    t = timings(
+        kernel=staged(lambda x, c, w: bdmm_q(x, c[w + "q"], c[w + "s"]),
+                      qfs, xq),
+        plain=staged(lambda x, c, w: bdmm_q_plain(x, c[w + "q"], c[w + "s"]),
+                     qfs, xq),
+        library=staged(bmm, deqs_bf16, xq))
+    summary["bdmm_q"] = summary_entry(
+        t, *layer_bound(fs, True, weight_bytes=1))
+    summary["paged_attention_span_q"] = summary_entry(
+        paged_q_summary, paged_q_summary["bound_ms"],
+        paged_q_summary["bound_by"])
+    emit({"phase": "kernel_summary",
+          "what": "one bf16 decode layer at T=8 (B1/B4: its projections, "
+                  "B4 int8 with fused QKV; B2/B5: the same at 128 blocks; "
+                  "B3/B6: one decode call)", "summary": summary})
 
     # -- 3. serve gpt2-medium at full width ---------------------------------
-    def serve(cfg, params, n_req, lo, hi, new_tokens, seed):
-        eng = ContinuousBatchingEngine(
-            cfg, params, max_slots=8, page_size=16, max_len=1024,
-            chunk_size=64, use_paged_kernel=True)
+    def serve(cfg, params, n_req, lo, hi, new_tokens, seed, **engine_kw):
+        kw = dict(max_slots=8, page_size=16, max_len=1024, chunk_size=64,
+                  use_paged_kernel=True)
+        eng = ContinuousBatchingEngine(cfg, params, **{**kw, **engine_kw})
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
                    for _ in range(n_req)]
@@ -431,13 +692,22 @@ def main() -> int:
     eng, reqs, counts, dt, out, prompt_toks = serve(cfg, params, 8, 32, 256,
                                                     32, seed=0)
     st_ = eng.stats
+    fp_serve = {"tokens_per_s": out / dt, "kv_dtype": eng.kv_dtype,
+                "pool_pages": eng.pool_host.n_pages - 1,
+                "pool_bytes": eng.pool_host.stats().pool_bytes,
+                "decode_weight_bytes": decode_weight_bytes(eng.params),
+                "decoder_weight_bytes": decode_weight_bytes(
+                    eng.params["decoder"])}
     emit({"phase": "serve", "model": "gpt2-medium", "dtype": cfg.dtype,
           "layers": cfg.n_layers, "requests": len(reqs),
           "prompt_tokens": prompt_toks, "new_tokens": out,
           "seconds": dt, "tokens_per_s": out / dt,
           "steps": st_["mixed_steps"],
           "kernel_dispatches": st_["kernel_dispatches"],
-          "dense_fallbacks": st_["dense_fallbacks"], "launches": counts})
+          "dense_fallbacks": st_["dense_fallbacks"], "launches": counts,
+          **{k: fp_serve[k] for k in ("kv_dtype", "pool_pages", "pool_bytes",
+                                      "decode_weight_bytes",
+                                      "decoder_weight_bytes")}})
     require(counts["monarch_fused"] > 0, "serve launched no monarch_fused")
     require(counts["paged_attention_span"] > 0,
             "serve launched no paged_attention_span")
@@ -473,26 +743,158 @@ def main() -> int:
             rows.append((dt / 1e3 / n_steps, e.key[:70], e.count))
         rows.sort(reverse=True)
         device = sum(r[0] for r in rows)
+        # calls that make the host wait for the device (PyTorch's sync
+        # debug mode warns on each one it detects); the engine means one
+        # a step, the harvest's read of the sampled tokens
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(n_steps):
+                    eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
         return {"wall_ms_per_step": wall * 1e3,
                 "device_ms_per_step": device,
                 "device_busy_share": device / (wall * 1e3),
+                "host_syncs_per_step": syncs / n_steps,
                 "top_kernels_ms_per_step": [
                     [name, ms, n / n_steps] for ms, name, n in rows[:8]]}
 
-    eng = ContinuousBatchingEngine(cfg, params, max_slots=8, page_size=16,
-                                   max_len=1024, chunk_size=64,
-                                   use_paged_kernel=True)
-    rng = np.random.default_rng(4)
-    for _ in range(8):
-        eng.add_request(rng.integers(0, cfg.vocab, 256),
-                        SamplingParams(max_new_tokens=64))
-    prefill = window(eng, 1)
-    while any(s.request.state.value != "running"
-              for s in eng.running.values()):
-        eng.step()
-    decode = window(eng, 8)
-    emit({"phase": "serve_profile", "prefill_T512": prefill,
-          "decode_T8": decode})
+    def profile_serve(cfg, params, **engine_kw):
+        eng = ContinuousBatchingEngine(cfg, params, max_slots=8,
+                                       page_size=16, max_len=1024,
+                                       chunk_size=64, use_paged_kernel=True,
+                                       **engine_kw)
+        rng = np.random.default_rng(4)
+        for _ in range(8):
+            eng.add_request(rng.integers(0, cfg.vocab, 256),
+                            SamplingParams(max_new_tokens=64))
+        prefill = window(eng, 1)
+        while any(s.request.state.value != "running"
+                  for s in eng.running.values()):
+            eng.step()
+        decode = window(eng, 8)
+        return {"prefill_T512": prefill, "decode_T8": decode}
+
+    emit({"phase": "serve_profile", **profile_serve(cfg, params)})
+
+    # -- 3b. the compressed decode path: fused QKV, int8/int4 factors, int8
+    # KV pages --------------------------------------------------------------
+    qopts = dict(quantize="int8", fuse_projections=True, kv_dtype="int8")
+    # quantization on the card is bitwise the CPU's
+    p_cpu = tree_to(params, "cpu")
+    for bits in (8, 4):
+        on_card = prepare_decode_params(params, cfg, fuse=True, bits=bits)
+        on_cpu = prepare_decode_params(p_cpu, cfg, fuse=True, bits=bits)
+        flat_card, flat_cpu = [], []
+        tree_map(flat_card.append, on_card)
+        tree_map(flat_cpu.append, on_cpu)
+        same = len(flat_card) == len(flat_cpu) and all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b)
+            for a, b in zip(flat_card, flat_cpu))
+        emit({"phase": "quantized_load", "bits": bits,
+              "tensors": len(flat_card), "bitwise_card_vs_cpu": same,
+              "decode_weight_bytes": decode_weight_bytes(on_card),
+              "decoder_weight_bytes": decode_weight_bytes(
+                  on_card["decoder"])})
+        require(same, f"int{bits} quantization differs card vs CPU")
+        del on_card, on_cpu
+    del p_cpu
+
+    serve(cfg, params, 2, 32, 64, 4, seed=1, **qopts)  # warm-up
+    eng, reqs, counts, dt, out, prompt_toks = serve(
+        cfg, params, 8, 32, 256, 32, seed=0,
+        pool_bytes=fp_serve["pool_bytes"], **qopts)
+    st_ = eng.stats
+    emit({"phase": "serve_quantized", "model": "gpt2-medium",
+          "options": qopts, "requests": len(reqs),
+          "prompt_tokens": prompt_toks, "new_tokens": out, "seconds": dt,
+          "tokens_per_s": out / dt,
+          "tokens_per_s_fp_serve": fp_serve["tokens_per_s"],
+          "decode_weight_bytes": decode_weight_bytes(eng.params),
+          "decode_weight_bytes_fp_serve": fp_serve["decode_weight_bytes"],
+          # the decoder layers alone: the factors int8 compresses, without
+          # the embedding and head, which stay at the model's width
+          "decoder_weight_bytes": decode_weight_bytes(eng.params["decoder"]),
+          "decoder_weight_bytes_fp_serve": fp_serve["decoder_weight_bytes"],
+          "pool_bytes": fp_serve["pool_bytes"],
+          "pool_pages": eng.pool_host.n_pages - 1,
+          "pool_pages_fp_serve": fp_serve["pool_pages"],
+          "kv_dtype_fp_serve": fp_serve["kv_dtype"],
+          "pool_pages_fp32_kv": fp_serve["pool_bytes"] // kv_page_bytes(
+              cfg.n_layers, cfg.n_kv_heads, cfg.hd, 16, "fp32"),
+          "steps": st_["mixed_steps"],
+          "kernel_dispatches": st_["kernel_dispatches"],
+          "dense_fallbacks": st_["dense_fallbacks"], "launches": counts})
+    require(counts["monarch_fused_q"] > 0
+            and counts["paged_attention_span_q"] > 0,
+            "the quantized serve launched no monarch_fused_q or int8 span "
+            "kernel")
+    require(counts["monarch_fused"] == 0
+            and counts["paged_attention_span"] == 0 and counts["bdmm"] == 0,
+            "the quantized serve launched a float-factor or float-page "
+            "kernel")
+    require(st_["dense_fallbacks"] == 0,
+            "the quantized serve fell back to dense attention")
+    for name in ("monarch_fused_q", "paged_attention_span_q"):
+        serve_counts[name] = counts[name]
+    # the host cost of the int8 write path (plain PyTorch, about 40 ops a
+    # call, two calls a layer): one decode-shaped call (8 rows x 1 token)
+    # into a pool of the serve's size, synchronized wall clock per call
+    n_pool = eng.pool_host.n_pages
+    wpages = torch.zeros((n_pool, 16, cfg.n_kv_heads, cfg.hd),
+                         dtype=torch.int8, device=dev)
+    wscales = torch.zeros((n_pool, cfg.n_kv_heads), device=dev)
+    wphys = torch.arange(1, 9, device=dev)[:, None]
+    woff = torch.full((8, 1), 5, device=dev)
+    wrows = randn(8, 1, cfg.n_kv_heads, cfg.hd, dtype=bf16)
+    wresc = torch.cat([wphys, wphys + 8], dim=1)
+
+    def kv_write():
+        quantize_kv_write(wpages, wscales, wphys, woff, wrows,
+                          rescale_phys=wresc)
+
+    for _ in range(5):
+        kv_write()
+    # the write path never waits for the device: a synchronizing call in
+    # it raises here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kv_write()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kv_write()
+    torch.cuda.synchronize()
+    kv_write_ms = (time.perf_counter() - t0) / 50 * 1e3
+    del eng, wpages
+    emit({"phase": "serve_profile_quantized", "options": qopts,
+          "quantize_kv_write_wall_ms_per_call": kv_write_ms,
+          "quantize_kv_write_wall_ms_per_step": kv_write_ms * 2
+          * cfg.n_layers,
+          **profile_serve(cfg, params, **qopts)})
+
+    eng, reqs, counts, dt, out, _ = serve(
+        cfg, params, 4, 32, 64, 8, seed=2,
+        **{**qopts, "quantize": "int4"})
+    emit({"phase": "serve_int4", "requests": len(reqs), "new_tokens": out,
+          "seconds": dt, "tokens_per_s": out / dt,
+          "decode_weight_bytes": decode_weight_bytes(eng.params),
+          "decoder_weight_bytes": decode_weight_bytes(eng.params["decoder"]),
+          "steps": eng.stats["mixed_steps"],
+          "dense_fallbacks": eng.stats["dense_fallbacks"],
+          "launches": counts})
+    require(counts["monarch_fused_q"] > 0 and counts["monarch_fused"] == 0
+            and counts["paged_attention_span_q"] > 0
+            and eng.stats["dense_fallbacks"] == 0,
+            "the int4 serve must run monarch_fused_q and the int8 span "
+            "kernel only")
     del eng, params
 
     cfg_st = dataclasses.replace(gpt2, monarch=dataclasses.replace(
@@ -510,6 +912,23 @@ def main() -> int:
     require(counts["paged_attention_span"] > 0,
             "staged serve launched no paged_attention_span")
     serve_counts["bdmm"] = counts["bdmm"]
+    del eng
+    eng, reqs, counts, dt, out, _ = serve(cfg_st, params, 4, 32, 64, 8,
+                                          seed=2, **qopts)
+    emit({"phase": "serve_staged_quantized",
+          "model": "gpt2-medium nblocks=128", "options": qopts,
+          "requests": len(reqs), "new_tokens": out, "seconds": dt,
+          "tokens_per_s": out / dt, "steps": eng.stats["mixed_steps"],
+          "dense_fallbacks": eng.stats["dense_fallbacks"],
+          "launches": counts})
+    require(counts["bdmm_q"] > 0 and counts["monarch_fused_q"] == 0
+            and counts["monarch_fused"] == 0 and counts["bdmm"] == 0,
+            "the nblocks=128 int8 serve must take the staged bdmm_q branch "
+            "only")
+    require(counts["paged_attention_span_q"] > 0
+            and eng.stats["dense_fallbacks"] == 0,
+            "the nblocks=128 int8 serve must run the int8 span kernel")
+    serve_counts["bdmm_q"] = counts["bdmm_q"]
     del eng, params
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
@@ -521,22 +940,36 @@ def main() -> int:
     toks = prng.integers(0, cfg.vocab, (Bp, Sp)).astype(np.int32)
     table = (1 + np.arange(Bp * mpp, dtype=np.int32)).reshape(Bp, mpp)
     spans_np = np.array([64, 40, 17, 1], np.int32)
-    logits = {}
-    for d in (dev, torch.device("cpu")):
-        pool = T.init_paged_pool(cfg32, 1 + Bp * mpp, 16, device=d)
+
+    def mixed_step_on(params, d, kv_dtype=None):
+        """One full-width mixed step on device ``d``: the logits and the
+        pool, both on the CPU."""
+        pool = T.init_paged_pool(cfg32, 1 + Bp * mpp, 16, kv_dtype=kv_dtype,
+                                 device=d)
         lg, _ = T.paged_mixed_step(
-            p_gpu if d.type == "cuda" else p_cpu,
-            torch.from_numpy(toks).to(d), torch.zeros(Bp, dtype=torch.int32,
-                                                      device=d),
+            params, torch.from_numpy(toks).to(d),
+            torch.zeros(Bp, dtype=torch.int32, device=d),
             torch.from_numpy(spans_np).to(d), torch.from_numpy(table).to(d),
             pool, cfg32)
-        logits[d.type] = lg[:, :cfg.vocab].float().cpu()
-    diff = (logits["cuda"] - logits["cpu"]).abs()
-    rel = float(diff.max() / logits["cpu"].abs().max())
-    emit({"phase": "parity_step", "max_abs_err": float(diff.max()),
-          "max_rel_err": rel, "rel_tol": PARITY_REL_TOL,
-          "finite": bool(torch.isfinite(logits["cuda"]).all())})
-    require(bool(torch.isfinite(logits["cuda"]).all()), "non-finite logits")
+        return lg[:, :cfg.vocab].float().cpu(), tree_to(pool, "cpu")
+
+    def logit_err(a, b) -> tuple[float, float]:
+        diff = (a - b).abs()
+        return float(diff.max() / b.abs().max()), float(diff.max())
+
+    def mixed_step_both(params_by_device, kv_dtype=None):
+        """One full-width mixed step on the card and on the CPU: relative
+        and absolute logit error, and both pools (card's first)."""
+        lg_card, pool_card = mixed_step_on(params_by_device["cuda"], dev,
+                                           kv_dtype)
+        lg_cpu, pool_cpu = mixed_step_on(params_by_device["cpu"],
+                                         torch.device("cpu"), kv_dtype)
+        require(bool(torch.isfinite(lg_card).all()), "non-finite logits")
+        return (*logit_err(lg_card, lg_cpu), (pool_card, pool_cpu), lg_cpu)
+
+    rel, abs_err, _, _ = mixed_step_both({"cuda": p_gpu, "cpu": p_cpu})
+    emit({"phase": "parity_step", "max_abs_err": abs_err,
+          "max_rel_err": rel, "rel_tol": PARITY_REL_TOL, "finite": True})
     require(rel <= PARITY_REL_TOL, f"card vs CPU logits differ: rel {rel}")
 
     # random weights often decode one token over and over, so beyond token
@@ -550,7 +983,6 @@ def main() -> int:
         step_logits.append(lg[span > 0, :cfg.vocab].float().cpu())
         return lg, pool
 
-    T.paged_mixed_step = recording_step
     prefix = list(prng.integers(0, cfg.vocab, 40))
     shared = [np.asarray(prefix + [(17 * i + j) % cfg.vocab
                                    for j in range(3 + i % 2)])
@@ -575,65 +1007,162 @@ def main() -> int:
     }
     stat_keys = ("mixed_steps", "preemptions", "prefix_hit_tokens",
                  "cow_forks", "kernel_dispatches", "dense_fallbacks")
-    for tname, (kw, prompts, stagger) in traces.items():
-        outs, stats, seen = {}, {}, {}
-        for d in ("cuda", "cpu"):
-            step_logits.clear()
-            eng = ContinuousBatchingEngine(
-                cfg32, p_gpu if d == "cuda" else p_cpu, page_size=16,
-                use_paged_kernel=True, device=d, **kw)
-            reset_launches()
-            pending, reqs, steps = list(prompts), [], 0
-            while pending or eng.has_work():
-                if pending and (stagger == 0 or steps % stagger == 0):
-                    while pending:
-                        reqs.append(eng.add_request(
-                            pending.pop(0), SamplingParams(max_new_tokens=8)))
-                        if stagger:
-                            break
-                eng.step()
-                steps += 1
-                require(steps < 1000, f"trace {tname} on {d} did not finish")
-            eng.pool_host.check_invariants()
-            outs[d] = [list(r.output_tokens) for r in reqs]
-            stats[d] = {k: eng.stats[k] for k in stat_keys}
-            seen[d] = list(step_logits)
-            if d == "cuda":
-                counts = launches()
-        require(len(seen["cuda"]) == len(seen["cpu"]) and all(
-            a.shape == b.shape for a, b in zip(seen["cuda"], seen["cpu"])),
-            f"trace {tname}: card and CPU ran other steps")
-        step_rel = max(float((a - b).abs().max() / b.abs().max())
-                       for a, b in zip(seen["cuda"], seen["cpu"]))
-        emit({"phase": "parity_tokens", "trace": tname, "cuda": outs["cuda"],
-              "cpu": outs["cpu"], "identical": outs["cuda"] == outs["cpu"],
-              "steps_compared": len(seen["cuda"]),
-              "max_step_rel_err": step_rel, "rel_tol": PARITY_REL_TOL,
-              "stats": stats["cuda"], "launches": counts})
-        require(outs["cuda"] == outs["cpu"],
-                f"trace {tname}: card and CPU greedy tokens differ")
-        require(stats["cuda"] == stats["cpu"],
-                f"trace {tname}: card and CPU engine stats differ")
-        require(all(len(o) == 8 for o in outs["cuda"]),
-                f"trace {tname}: a request returned too few tokens")
-        require(step_rel <= PARITY_REL_TOL,
-                f"trace {tname}: card and CPU step logits differ: {step_rel}")
-        require(counts["monarch_fused"] > 0
-                and counts["paged_attention_span"] > 0
-                and stats["cuda"]["dense_fallbacks"] == 0,
-                f"trace {tname}: the card did not run the kernels")
-        if tname == "preemption":
-            require(stats["cuda"]["preemptions"] > 0,
-                    "the preemption trace preempted nothing")
-        if tname == "prefix_cow":
-            require(stats["cuda"]["prefix_hit_tokens"] > 0
-                    and stats["cuda"]["cow_forks"] > 0,
-                    "the prefix trace forked no page")
-    T.paged_mixed_step = mixed_step
+
+    def run_traces(phase: str, engine_kw: dict, exact: bool,
+                   kernels: tuple[str, str]) -> None:
+        """The three traces on the card and on the CPU.  ``exact``: tokens,
+        counters and every step's logits held to the fp32 limits; else
+        greedy tokens at least INT8_KV_TOKEN_AGREEMENT identical."""
+        T.paged_mixed_step = recording_step
+        try:
+            for tname, (kw, prompts, stagger) in traces.items():
+                outs, stats, seen = {}, {}, {}
+                for d in ("cuda", "cpu"):
+                    step_logits.clear()
+                    eng = ContinuousBatchingEngine(
+                        cfg32, p_gpu if d == "cuda" else p_cpu, page_size=16,
+                        use_paged_kernel=True, device=d, **kw, **engine_kw)
+                    reset_launches()
+                    pending, reqs, steps = list(prompts), [], 0
+                    while pending or eng.has_work():
+                        if pending and (stagger == 0 or steps % stagger == 0):
+                            while pending:
+                                reqs.append(eng.add_request(
+                                    pending.pop(0),
+                                    SamplingParams(max_new_tokens=8)))
+                                if stagger:
+                                    break
+                        eng.step()
+                        steps += 1
+                        require(steps < 1000,
+                                f"trace {tname} on {d} did not finish")
+                    eng.pool_host.check_invariants()
+                    outs[d] = [list(r.output_tokens) for r in reqs]
+                    stats[d] = {k: eng.stats[k] for k in stat_keys}
+                    seen[d] = list(step_logits)
+                    if d == "cuda":
+                        counts = launches()
+                same_steps = len(seen["cuda"]) == len(seen["cpu"]) and all(
+                    a.shape == b.shape
+                    for a, b in zip(seen["cuda"], seen["cpu"]))
+                step_rel = max(float((a - b).abs().max() / b.abs().max())
+                               for a, b in zip(seen["cuda"], seen["cpu"]))
+                flat = [(a, b) for oa, ob in zip(outs["cuda"], outs["cpu"])
+                        for a, b in zip(oa, ob)]
+                agree = sum(a == b for a, b in flat) / max(len(flat), 1)
+                emit({"phase": phase, "trace": tname, "cuda": outs["cuda"],
+                      "cpu": outs["cpu"],
+                      "identical": outs["cuda"] == outs["cpu"],
+                      "token_agreement": agree,
+                      "steps_compared": len(seen["cuda"]),
+                      "max_step_rel_err": step_rel,
+                      "rel_tol": PARITY_REL_TOL if exact else None,
+                      "stats": stats["cuda"], "launches": counts})
+                require(all(len(o) == 8 for o in outs["cuda"]),
+                        f"{phase} {tname}: a request returned too few tokens")
+                require(counts[kernels[0]] > 0 and counts[kernels[1]] > 0
+                        and stats["cuda"]["dense_fallbacks"] == 0,
+                        f"{phase} {tname}: the card did not run {kernels}")
+                if exact:
+                    require(same_steps, f"{phase} {tname}: card and CPU ran "
+                            "other steps")
+                    require(outs["cuda"] == outs["cpu"],
+                            f"{phase} {tname}: card and CPU tokens differ")
+                    require(stats["cuda"] == stats["cpu"],
+                            f"{phase} {tname}: card and CPU stats differ")
+                    require(step_rel <= PARITY_REL_TOL,
+                            f"{phase} {tname}: step logits differ: "
+                            f"{step_rel}")
+                else:
+                    require(agree >= INT8_KV_TOKEN_AGREEMENT,
+                            f"{phase} {tname}: token agreement {agree}")
+                if tname == "preemption":
+                    require(stats["cuda"]["preemptions"] > 0,
+                            "the preemption trace preempted nothing")
+                if tname == "prefix_cow":
+                    require(stats["cuda"]["prefix_hit_tokens"] > 0
+                            and stats["cuda"]["cow_forks"] > 0,
+                            "the prefix trace forked no page")
+        finally:
+            T.paged_mixed_step = mixed_step
+
+    run_traces("parity_tokens", {}, True,
+               ("monarch_fused", "paged_attention_span"))
+
+    # -- 4b. int8 factors (fused QKV), fp32 KV: as exact as fp32 -------------
+    q_gpu = prepare_decode_params(p_gpu, cfg32, fuse=True, bits=8)
+    q_cpu = prepare_decode_params(p_cpu, cfg32, fuse=True, bits=8)
+    rel, abs_err, _, _ = mixed_step_both({"cuda": q_gpu, "cpu": q_cpu})
+    emit({"phase": "parity_step_int8_factors", "max_abs_err": abs_err,
+          "max_rel_err": rel, "rel_tol": PARITY_REL_TOL})
+    require(rel <= PARITY_REL_TOL,
+            f"int8 factors: card vs CPU logits differ: rel {rel}")
+    run_traces("parity_tokens_int8_factors",
+               dict(quantize="int8", fuse_projections=True), True,
+               ("monarch_fused_q", "paged_attention_span"))
+
+    # -- 4c. int8 factors and int8 KV pages ---------------------------------
+    rel, abs_err, (pool_card, pool_cpu), lg_cpu = mixed_step_both(
+        {"cuda": q_gpu, "cpu": q_cpu}, kv_dtype="int8")
+
+    def int8_pool_diff(a, b) -> list[dict]:
+        """Per layer: the largest int8 step between stored values, how
+        many differ, and the largest relative scale difference (the sink,
+        page 0, excluded)."""
+        a, b = a["layers"]["attn"], b["layers"]["attn"]
+        rows = []
+        for li in range(cfg32.n_layers):
+            row = {"max_steps": 0, "values_differing": 0, "scale_rel": 0.0}
+            for name in ("k_pages", "v_pages"):
+                d = (a[name][li, 1:].int() - b[name][li, 1:].int()).abs()
+                row["max_steps"] = max(row["max_steps"], int(d.max()))
+                row["values_differing"] += int((d > 0).sum())
+            for name in ("k_scales", "v_scales"):
+                d = (a[name][li, 1:] - b[name][li, 1:]).abs()
+                row["scale_rel"] = max(row["scale_rel"], float(
+                    (d / b[name][li, 1:].abs().clamp(min=1e-30)).max()))
+            rows.append(row)
+        return rows
+
+    def worst(rows) -> dict:
+        return {"max_steps": max(r["max_steps"] for r in rows),
+                "values_differing": sum(r["values_differing"] for r in rows),
+                "scale_rel": max(r["scale_rel"] for r in rows)}
+
+    card = int8_pool_diff(pool_card, pool_cpu)
+    # the model's own sensitivity: the CPU against itself with every
+    # embedding weight moved one ulp
+    inf = float("inf")
+    nudged = dict(q_cpu, embedding=tree_map(
+        lambda t: torch.nextafter(t, torch.full_like(t, inf)),
+        q_cpu["embedding"]))
+    lg_n, pool_n = mixed_step_on(nudged, torch.device("cpu"), "int8")
+    ref = int8_pool_diff(pool_n, pool_cpu)
+    emit({"phase": "parity_step_int8_kv", "max_abs_err": abs_err,
+          "max_rel_err": rel, "rel_tol": INT8_KV_STEP_REL_TOL,
+          "page_values_per_layer": pool_cpu["layers"]["attn"]["k_pages"][
+              0, 1:].numel() * 2,
+          "first_layer": card[0], "scale_rel_tol": INT8_KV_SCALE_REL_TOL,
+          "all_layers": worst(card),
+          "max_steps_per_layer": [r["max_steps"] for r in card],
+          "cpu_one_ulp_embedding": {"max_rel_err": logit_err(lg_n, lg_cpu)[0],
+                                    "first_layer": ref[0],
+                                    "all_layers": worst(ref)}})
+    require(card[0]["max_steps"] <= 1,
+            f"int8 pages of the first layer differ by "
+            f"{card[0]['max_steps']} steps")
+    require(card[0]["scale_rel"] <= INT8_KV_SCALE_REL_TOL,
+            f"int8 KV scales of the first layer differ: rel "
+            f"{card[0]['scale_rel']}")
+    require(rel <= INT8_KV_STEP_REL_TOL,
+            f"int8 KV: card vs CPU logits differ: rel {rel}")
+    del pool_card, pool_cpu, pool_n
+    run_traces("parity_tokens_int8_kv", qopts, False,
+               ("monarch_fused_q", "paged_attention_span_q"))
 
     # -- summary --------------------------------------------------------------
     kernels = []
-    for name in ("monarch_fused", "bdmm", "paged_attention_span"):
+    for name in KERNELS:
         s = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -11,6 +11,11 @@ refuses mixed dtypes where ``jnp.einsum`` promotes:
   * einsum and dense: computed in the promotion of x and the weights (bf16
     x with fp32 factors returns fp32, as ``jnp.einsum`` does);
   * kernel: returns ``x.dtype`` (the Pallas kernel's ``out_shape``).
+
+A quantized container (``core.quant``: int8/int4 ``Lq``/``Rq`` with
+per-block ``Ls``/``Rs``) takes ``kernels.ops.monarch_mm_q`` on the kernel
+backend, and on the einsum backend is dequantized to fp32 factors first, so
+it then follows the einsum row above.
 """
 
 from __future__ import annotations
@@ -79,10 +84,16 @@ def linear_apply(params: dict[str, Any], x: torch.Tensor,
             inner["b"] = params["b"]
         return linear_apply(inner, x, backend=backend)
     if qn.is_quantized(params):
-        raise NotImplementedError(
-            "quantized Monarch factors need the int8/int4 kernels, which "
-            "are not ported yet")
-    if is_monarch(params):
+        if backend == "pallas":
+            from repro_torch.kernels import ops as kops  # lazy: avoid cycle
+
+            y = kops.monarch_mm_q(x, params["Lq"], params["Ls"],
+                                  params["Rq"], params["Rs"])
+        else:
+            k = params["Ls"].shape[-3]
+            deq = qn.dequantize_monarch(params, k, x.shape[-1] // k)
+            y = mn.monarch_multiply(x, deq["L"], deq["R"])
+    elif is_monarch(params):
         if backend == "pallas":
             from repro_torch.kernels import ops as kops  # lazy: avoid cycle
 
@@ -98,9 +109,26 @@ def linear_apply(params: dict[str, Any], x: torch.Tensor,
     return y
 
 
+def is_quantized(params: dict[str, Any]) -> bool:
+    """Quantized Monarch container (core.quant): int8/int4 factors +
+    per-block scales."""
+    return qn.is_quantized(params)
+
+
+def linear_out_dim(params: dict[str, Any]) -> int:
+    if qn.is_quantized(params):
+        return qn.quantized_out_dim(params)
+    if is_monarch(params):
+        q, s, _ = params["R"].shape
+        return q * s
+    return params["w"].shape[1]
+
+
 __all__ = [
     "MonarchSpec",
     "linear_init",
     "linear_apply",
     "is_monarch",
+    "is_quantized",
+    "linear_out_dim",
 ]

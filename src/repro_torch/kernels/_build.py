@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
+Each source ``csrc/<name>.cu`` (a float kernel and its quantized twin,
+two instances of one template) compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds, not minutes.  Libraries land in
 ``build/kernels/`` at the repository root (``REPRO_TORCH_BUILD_DIR``
@@ -36,7 +37,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else (the CPU path never counts)
-LAUNCHES = {"monarch_fused": 0, "bdmm": 0, "paged_attention_span": 0}
+LAUNCHES = {"monarch_fused": 0, "bdmm": 0, "paged_attention_span": 0,
+            "monarch_fused_q": 0, "bdmm_q": 0, "paged_attention_span_q": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -7,6 +7,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 // dtype codes passed from Python (kernels/_build.py: DTYPE_CODES)
 #define DT_F32 0
@@ -27,6 +28,43 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+// Block-diagonal factor readers: element (r, c) of diagonal block ``blk``
+// of a factor stored as (n_blocks, rows, cols), widened to fp32.  The
+// kernels are templated on the reader, so a float factor and a quantized
+// one run the same arithmetic after the value is staged in shared memory.
+template <typename WT>
+struct FloatBlocks {
+  const WT* w;
+  int rows, cols;
+  __device__ __forceinline__ float operator()(int blk, int r, int c) const {
+    return to_f(w[((size_t)blk * rows + r) * cols + c]);
+  }
+};
+
+// int8 values (BITS 8), or int4 values packed two to a byte along ``cols``
+// (BITS 4: byte = hi << 4 | lo, lo the even index), times the block's fp32
+// scale: core.quant.dequantize_factor's single fp32 multiply.  __fmul_rn
+// keeps nvcc from contracting it into a later add, so the staged value is
+// bitwise what the plain version computes.
+template <int BITS>
+struct QuantBlocks {
+  const int8_t* w;
+  const float* scale;
+  int rows, cols;
+  __device__ __forceinline__ float operator()(int blk, int r, int c) const {
+    const int stored = BITS == 4 ? cols >> 1 : cols;
+    const int8_t* row = w + ((size_t)blk * rows + r) * stored;
+    int v;
+    if (BITS == 4) {
+      const int b = row[c >> 1];  // the signed byte, sign-extended
+      v = (c & 1) ? (b >> 4) : (((b & 0xF) ^ 8) - 8);
+    } else {
+      v = row[c];
+    }
+    return __fmul_rn(static_cast<float>(v), scale[blk]);
+  }
+};
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, then return
 // the launch error (0 on success) so the Python wrapper can raise on it.

@@ -1,8 +1,12 @@
 // Fused two-stage Monarch product y = R . P . L . x for one token tile per
-// thread block.  Replaces the Pallas kernel ``monarch_fused`` /
-// ``_monarch_kernel`` of repro/kernels/monarch.py.
+// thread block.  Replaces the Pallas kernels ``monarch_fused`` /
+// ``_monarch_kernel`` (float factors) and ``monarch_fused_q`` /
+// ``_monarch_q_kernel`` (int8 or nibble-packed int4 factors with one fp32
+// scale per diagonal block) of repro/kernels/monarch.py.
 //
 // x: (T, k*p), L: (k, q, p), R: (q, s, k) -> y: (T, q*s) in x's dtype.
+// Quantized: Lq (k, q, p[/2]) int8, Ls (k,) fp32, Rq (q, s, k[/2]) int8,
+// Rs (q,) fp32; the int4 axis is the contraction axis of each factor.
 //
 // The TPU kernel pins both whole factors in VMEM; a Hopper block has at most
 // 227 KB of shared memory, less than one gpt2-medium FFN factor pair in
@@ -16,19 +20,25 @@
 //   stage 2  for i < q: stage R[i] (s x k), read u[t, :, i] -- the stride
 //            permutation P is only this index -- and write y[t, i*s:(i+1)*s].
 //
+// A factor block is staged as fp32 through a reader (common.cuh): a float
+// factor is widened, a quantized one dequantized as float(v) * scale of its
+// block, one fp32 multiply, exactly core.quant.dequantize_factor.  After
+// staging the two instances run the same code, so the quantized kernel is
+// bitwise the float kernel on the dequantized factors, and only the bytes
+// read from device memory shrink (1 or 0.5 per weight instead of 4).
+//
 // Shared memory: bT*k*q (intermediate) + max(q*(p+1), s*(k+1)) (one factor
 // block, rows padded by one float against bank conflicts) + bT*p (x slice)
-// floats.  kernels/monarch.py:fused_smem_bytes is the same formula, and
-// ops.monarch_mm takes the staged bdmm branch when no tile fits.
-// The ragged T edge is masked instead of padded.
+// floats, whatever the factors' stored width.  kernels/monarch.py:
+// fused_smem_bytes is the same formula, and ops.monarch_mm[_q] take the
+// staged bdmm branch when no tile fits.  The ragged T edge is masked
+// instead of padded.
 #include <algorithm>
 
 #include "common.cuh"
 
-template <typename XT, typename WT>
-__global__ void monarch_fused_kernel(const XT* __restrict__ x,
-                                     const WT* __restrict__ L,
-                                     const WT* __restrict__ R,
+template <typename XT, typename W>
+__global__ void monarch_fused_kernel(const XT* __restrict__ x, W Lw, W Rw,
                                      XT* __restrict__ y, int T, int k, int q,
                                      int p, int s, int bT) {
   extern __shared__ float smem[];
@@ -44,10 +54,9 @@ __global__ void monarch_fused_kernel(const XT* __restrict__ x,
 
   // stage 1: u[t, j, c] = sum_pp L[j, c, pp] * x[t, j*p + pp]
   for (int j = 0; j < k; ++j) {
-    const WT* Lj = L + (size_t)j * q * p;
     for (int e = tid; e < q * p; e += nth) {
       const int c = e / p, pp = e - c * p;
-      wbuf[c * lstride + pp] = to_f(Lj[e]);
+      wbuf[c * lstride + pp] = Lw(j, c, pp);
     }
     for (int e = tid; e < bT * p; e += nth) {
       const int t = e / p, pp = e - t * p;
@@ -68,10 +77,9 @@ __global__ void monarch_fused_kernel(const XT* __restrict__ x,
 
   // stage 2: y[t, i*s + c] = sum_jj R[i, c, jj] * u[t, jj, i]
   for (int i = 0; i < q; ++i) {
-    const WT* Ri = R + (size_t)i * s * k;
     for (int e = tid; e < s * k; e += nth) {
       const int c = e / k, jj = e - c * k;
-      wbuf[c * rstride + jj] = to_f(Ri[e]);
+      wbuf[c * rstride + jj] = Rw(i, c, jj);
     }
     __syncthreads();
     for (int e = tid; e < bT * s; e += nth) {
@@ -90,38 +98,76 @@ __global__ void monarch_fused_kernel(const XT* __restrict__ x,
   }
 }
 
-template <typename XT, typename WT>
-static int launch(const void* x, const void* L, const void* R, void* y, int T,
-                  int k, int q, int p, int s, int bT, size_t smem,
-                  cudaStream_t stream) {
-  auto kern = monarch_fused_kernel<XT, WT>;
+template <typename XT, typename W>
+static int launch(const void* x, W Lw, W Rw, void* y, int T, int k, int q,
+                  int p, int s, int bT, cudaStream_t stream) {
+  const size_t wsize = (size_t)std::max(q * (p + 1), s * (k + 1));
+  const size_t smem =
+      sizeof(float) * ((size_t)bT * k * q + wsize + (size_t)bT * p);
+  auto kern = monarch_fused_kernel<XT, W>;
   cudaError_t err = prepare_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (T + bT - 1) / bT;
-  kern<<<grid, 256, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<const WT*>(L),
-      static_cast<const WT*>(R), static_cast<XT*>(y), T, k, q, p, s, bT);
+  kern<<<grid, 256, smem, stream>>>(static_cast<const XT*>(x), Lw, Rw,
+                                    static_cast<XT*>(y), T, k, q, p, s, bT);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename WT>
+static int launch_float(const void* x, const void* L, const void* R, void* y,
+                        int T, int k, int q, int p, int s, int bT, int x_dtype,
+                        cudaStream_t st) {
+  const FloatBlocks<WT> Lw{static_cast<const WT*>(L), q, p};
+  const FloatBlocks<WT> Rw{static_cast<const WT*>(R), s, k};
+  if (x_dtype == DT_F32)
+    return launch<float>(x, Lw, Rw, y, T, k, q, p, s, bT, st);
+  if (x_dtype == DT_BF16)
+    return launch<__nv_bfloat16>(x, Lw, Rw, y, T, k, q, p, s, bT, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int BITS>
+static int launch_quant(const void* x, const void* Lq, const void* Ls,
+                        const void* Rq, const void* Rs, void* y, int T, int k,
+                        int q, int p, int s, int bT, int x_dtype,
+                        cudaStream_t st) {
+  const QuantBlocks<BITS> Lw{static_cast<const int8_t*>(Lq),
+                             static_cast<const float*>(Ls), q, p};
+  const QuantBlocks<BITS> Rw{static_cast<const int8_t*>(Rq),
+                             static_cast<const float*>(Rs), s, k};
+  if (x_dtype == DT_F32)
+    return launch<float>(x, Lw, Rw, y, T, k, q, p, s, bT, st);
+  if (x_dtype == DT_BF16)
+    return launch<__nv_bfloat16>(x, Lw, Rw, y, T, k, q, p, s, bT, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int monarch_fused_launch(const void* x, const void* L,
                                     const void* R, void* y, int T, int k,
                                     int q, int p, int s, int bT, int x_dtype,
                                     int w_dtype, void* stream) {
-  const size_t wsize = (size_t)std::max(q * (p + 1), s * (k + 1));
-  const size_t smem =
-      sizeof(float) * ((size_t)bT * k * q + wsize + (size_t)bT * p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == DT_F32 && w_dtype == DT_F32)
-    return launch<float, float>(x, L, R, y, T, k, q, p, s, bT, smem, st);
-  if (x_dtype == DT_F32 && w_dtype == DT_BF16)
-    return launch<float, __nv_bfloat16>(x, L, R, y, T, k, q, p, s, bT, smem,
-                                        st);
-  if (x_dtype == DT_BF16 && w_dtype == DT_F32)
-    return launch<__nv_bfloat16, float>(x, L, R, y, T, k, q, p, s, bT, smem,
-                                        st);
-  if (x_dtype == DT_BF16 && w_dtype == DT_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, L, R, y, T, k, q, p, s, bT,
-                                                smem, st);
+  if (w_dtype == DT_F32)
+    return launch_float<float>(x, L, R, y, T, k, q, p, s, bT, x_dtype, st);
+  if (w_dtype == DT_BF16)
+    return launch_float<__nv_bfloat16>(x, L, R, y, T, k, q, p, s, bT, x_dtype,
+                                       st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bits 8: int8 factors; bits 4: both factors nibble-packed along their
+// contraction axis (p for L, k for R, both even)
+extern "C" int monarch_fused_q_launch(const void* x, const void* Lq,
+                                      const void* Ls, const void* Rq,
+                                      const void* Rs, void* y, int T, int k,
+                                      int q, int p, int s, int bT, int x_dtype,
+                                      int bits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    return launch_quant<8>(x, Lq, Ls, Rq, Rs, y, T, k, q, p, s, bT, x_dtype,
+                           st);
+  if (bits == 4 && p % 2 == 0 && k % 2 == 0)
+    return launch_quant<4>(x, Lq, Ls, Rq, Rs, y, T, k, q, p, s, bT, x_dtype,
+                           st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,14 +6,21 @@
 the fused two-stage kernel when a token tile's intermediate fits shared
 memory (``kernels.monarch.fused_fits``), and otherwise the two ``bdmm``
 stages with the folded permutation in between as a strided read.
+``monarch_mm_q`` is the same dispatch over int8 / packed-int4 factors with
+per-block scales (``core.quant``), through ``monarch_fused_q`` and
+``bdmm_q``; its fit is the same shared-memory rule on the UNPACKED shapes,
+since both kernels dequantize into the float kernels' fp32 tiles.
 
 ``paged_dispatch`` is THE kernel-vs-dense decision for one paged-attention
 span step, shared by ``models.layers._paged_attend`` and the engine's
 dispatch counters.  Its fit rule is the span kernel's shared memory on
 Hopper, which the span does not enter (the kernel tiles its queries); the
 reject reason keeps the reference's name ``"vmem"`` so the engine counters
-stay comparable across packages.  Tensor-parallel pools and quantized
-pages, which the reference's decision also weighs, are not ported yet.
+stay comparable across packages.  Int8 pages need no argument of their
+own: the int8 instance of the span kernel dequantizes into the same fp32
+tile and reads its two scales into registers, so its shared memory is the
+float kernel's.  Tensor-parallel pools, which the reference's decision also
+weighs, are not ported yet.
 
 Which path a call takes depends only on shapes: a CUDA tensor launches the
 kernel, a CPU tensor runs the kernel's plain version.
@@ -25,8 +32,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels.bdmm import bdmm
-from repro_torch.kernels.monarch import fused_fits, monarch_fused
+from repro_torch.kernels.bdmm import bdmm, bdmm_q
+from repro_torch.kernels.monarch import (fused_fits, monarch_fused,
+                                         monarch_fused_q, quant_dims)
 from repro_torch.kernels.paged import span_fits as paged_span_fits
 
 
@@ -44,6 +52,22 @@ def monarch_mm(x: torch.Tensor, L: torch.Tensor,
         u = bdmm(xt.view(-1, k, p), L)                    # (T, k, q)
         ut = u.transpose(-1, -2)                          # (T, q, k) view
         y = bdmm(ut, R).reshape(-1, q * s)                # (T, q, s)
+    return y.reshape(*batch, q * s)
+
+
+def monarch_mm_q(x: torch.Tensor, Lq: torch.Tensor, Ls: torch.Tensor,
+                 Rq: torch.Tensor, Rs: torch.Tensor) -> torch.Tensor:
+    """Quantized Monarch matmul: int8/int4 factors + per-block scales,
+    dequantized on chip (fp32 accumulate).  x: (..., k*p) -> (..., q*s),
+    in ``x.dtype``."""
+    *batch, din = x.shape
+    k, q, p, s, _ = quant_dims(x.shape, Lq, Ls, Rq, Rs)
+    xt = x.reshape(-1, din).contiguous()
+    if fused_fits((k, q, p), (q, s, k)):
+        y = monarch_fused_q(xt, Lq, Ls, Rq, Rs)
+    else:  # staged: two bdmm_q calls, the permutation is a strided read
+        u = bdmm_q(xt.view(-1, k, p), Lq, Ls)              # (T, k, q)
+        y = bdmm_q(u.transpose(-1, -2), Rq, Rs).reshape(-1, q * s)
     return y.reshape(*batch, q * s)
 
 
@@ -65,7 +89,9 @@ def paged_dispatch(head_dim: int, page_size: int, *,
     """``"kernel"`` when the span kernel runs, else the reject reason (one
     of :data:`PAGED_DISPATCH_REASONS`): ``"disabled"`` — the config never
     asked for it; ``"softcap"`` — logit soft-capping has no kernel;
-    ``"vmem"`` — not even a one-row query tile fits shared memory."""
+    ``"vmem"`` — not even a one-row query tile fits shared memory.  It
+    takes no ``quantized`` argument: the int8-page instance of the kernel
+    uses the float instance's shared memory, so one rule decides both."""
     if not paged_kernel:
         return "disabled"
     if softcap:
@@ -73,5 +99,5 @@ def paged_dispatch(head_dim: int, page_size: int, *,
     return "kernel" if paged_span_fits(head_dim, page_size) else "vmem"
 
 
-__all__ = ["monarch_mm", "bdmm_mm", "paged_span_fits", "paged_dispatch",
-           "PAGED_DISPATCH_REASONS"]
+__all__ = ["monarch_mm", "monarch_mm_q", "bdmm_mm", "paged_span_fits",
+           "paged_dispatch", "PAGED_DISPATCH_REASONS"]

@@ -2,7 +2,13 @@
 
 Replaces ``repro/kernels/paged.py:paged_attention_span`` with fp32 or bf16
 pages (Pallas ``_paged_attention_span`` / ``_paged_span_kernel`` /
-``_span_attend``), and its single-query wrapper ``paged_attention``.
+``_span_attend``), with int8 pages and their per-(page, head) fp32 scales
+(Pallas ``_paged_attention_span_q`` / ``_paged_span_kernel_q``), and its
+single-query wrapper ``paged_attention``.  The int8 instance stages each
+page as ``float(v) * scale`` (``core.quant.dequantize_kv_pages``'s one
+multiply) into the float kernel's fp32 tile and runs its flash body
+unchanged: it is bitwise the float kernel on dequantized pages, needs the
+same shared memory, and counts its launches as ``paged_attention_span_q``.
 
 Row ``b``'s query ``i`` sits at global position ``start[b] + i`` and is
 valid iff ``i < span_len[b]`` (invalid rows return zeros); it attends key
@@ -31,8 +37,11 @@ from __future__ import annotations
 import ctypes
 import math
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core.quant import dequantize_kv_pages
 from repro_torch.kernels import _build
 from repro_torch.kernels.monarch import SMEM_BUDGET_BYTES
 
@@ -59,24 +68,34 @@ def query_tile(span: int, head_dim: int, page_size: int) -> int:
 def span_fits(head_dim: int, page_size: int) -> bool:
     """Hopper's fit rule for the span kernel: a one-row query tile fits a
     block's shared memory.  The span does not enter it (queries are
-    tiled), unlike the reference's VMEM rule."""
+    tiled), unlike the reference's VMEM rule, and neither does the page
+    width (int8 pages are dequantized into the same fp32 tile)."""
     return query_tile(1, head_dim, page_size) > 0
 
 
 def paged_attention_span_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, page_table: torch.Tensor,
                                start: torch.Tensor, span_len: torch.Tensor,
-                               window: int) -> torch.Tensor:
+                               window: int,
+                               k_scales: Optional[torch.Tensor] = None,
+                               v_scales: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, over all pages at once:
-    gather every row's pages, mask with -1e30, softmax with the mask
-    multiplied in and ``max(l, 1e-30)``, zero the invalid rows."""
+    gather every row's pages (int8 pages dequantized under their scale
+    rows), mask with -1e30, softmax with the mask multiplied in and
+    ``max(l, 1e-30)``, zero the invalid rows."""
     B, S, H, hd = q.shape
     _, pg, KV, _ = k_pages.shape
     MP = page_table.shape[1]
     g = H // KV
     pt = page_table.long()
-    kk = k_pages[pt].reshape(B, MP * pg, KV, hd).float()
-    vv = v_pages[pt].reshape(B, MP * pg, KV, hd).float()
+    if k_scales is not None:
+        kk = dequantize_kv_pages(k_pages[pt], k_scales[pt])
+        vv = dequantize_kv_pages(v_pages[pt], v_scales[pt])
+    else:
+        kk, vv = k_pages[pt].float(), v_pages[pt].float()
+    kk = kk.reshape(B, MP * pg, KV, hd)
+    vv = vv.reshape(B, MP * pg, KV, hd)
     qh = q.reshape(B, S, KV, g, hd).float()
     s = torch.einsum("bskgh,btkh->bskgt", qh, kk) / math.sqrt(hd)
     t = torch.arange(MP * pg, device=q.device)[None, None, :]
@@ -97,31 +116,49 @@ def paged_attention_span_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
              + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_Q_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
+               + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
                          start: torch.Tensor, span_len: torch.Tensor,
-                         window: int = GLOBAL_WINDOW) -> torch.Tensor:
+                         window: int = GLOBAL_WINDOW,
+                         k_scales: Optional[torch.Tensor] = None,
+                         v_scales: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """q: (B, S, H, hd) query spans; k/v_pages: (P, page, KV, hd);
     page_table: (B, MP); start, span_len: (B,); window: sliding window
-    (``GLOBAL_WINDOW`` = global).  Returns (B, S, H, hd) in q's dtype."""
+    (``GLOBAL_WINDOW`` = global).  ``k_scales``/``v_scales`` (P, KV) fp32:
+    the per-(page, head) scales of int8 pages, which then run the int8
+    instance of the kernel.  Returns (B, S, H, hd) in q's dtype."""
     B, S, H, hd = q.shape
-    _, pg, KV, hd2 = k_pages.shape
+    P, pg, KV, hd2 = k_pages.shape
     if hd2 != hd or v_pages.shape != k_pages.shape or H % KV:
         raise ValueError(f"bad shapes q{tuple(q.shape)} "
                          f"pages{tuple(k_pages.shape)}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    quantized = k_scales is not None
+    if quantized and (k_pages.dtype != torch.int8
+                      or tuple(k_scales.shape) != (P, KV)
+                      or tuple(v_scales.shape) != (P, KV)):
+        raise ValueError("scales need int8 pages and (P, KV) scale rows")
     window = int(window)
     if q.device.type == "cpu":
         return paged_attention_span_plain(q, k_pages, v_pages, page_table,
-                                          start, span_len, window)
+                                          start, span_len, window,
+                                          k_scales, v_scales)
     dev = q.device
+    scales = (k_scales, v_scales) if quantized else ()
     if dev.type != "cuda" or any(t.device != dev for t in (
-            k_pages, v_pages, page_table, start, span_len)):
+            k_pages, v_pages, page_table, start, span_len, *scales)):
         raise ValueError("paged_attention_span: every tensor must be on one "
                          "CUDA device")
     if k_pages.dtype != v_pages.dtype:
         raise TypeError("paged_attention_span: k and v pages differ in dtype")
+    if quantized and not all(t.dtype == torch.float32 for t in scales):
+        raise TypeError("paged_attention_span: scales must be float32")
     tile = query_tile(S, hd, pg)
     if not tile:
         raise ValueError(f"paged_attention_span: head_dim {hd} x page {pg} "
@@ -133,6 +170,18 @@ def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
     sl = span_len.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if B == 0 or S == 0:
+        return out
+    if quantized:
+        ksc, vsc = k_scales.contiguous(), v_scales.contiguous()
+        lib = _build.library("paged", "paged_span_q_launch", _Q_ARGTYPES)
+        err = lib.paged_span_q_launch(
+            _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
+            _build.ptr(ksc), _build.ptr(vsc), _build.ptr(pt),
+            _build.ptr(st), _build.ptr(sl), window, _build.ptr(out), B, S,
+            H, hd, pg, KV, pt.shape[1], tile,
+            _build.dtype_code(q, "paged q"), _build.stream_of(q))
+        _build.check(err, "paged_attention_span_q launch")
+        _build.LAUNCHES["paged_attention_span_q"] += 1
         return out
     lib = _build.library("paged", "paged_span_launch", _ARGTYPES)
     err = lib.paged_span_launch(
@@ -149,15 +198,19 @@ def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor,
-                    window: int = GLOBAL_WINDOW) -> torch.Tensor:
+                    window: int = GLOBAL_WINDOW,
+                    k_scales: Optional[torch.Tensor] = None,
+                    v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-query decode special case (span of 1 per sequence).
 
     q: (B, H, hd); lengths: (B,) valid keys per row, current token included
-    (the query sits at position ``lengths - 1``).  Returns (B, H, hd)."""
+    (the query sits at position ``lengths - 1``); scales as in
+    :func:`paged_attention_span`.  Returns (B, H, hd)."""
     B = q.shape[0]
     ones = torch.ones((B,), dtype=torch.int32, device=q.device)
     out = paged_attention_span(q[:, None], k_pages, v_pages, page_table,
-                               lengths.to(torch.int32) - 1, ones, window)
+                               lengths.to(torch.int32) - 1, ones, window,
+                               k_scales=k_scales, v_scales=v_scales)
     return out[:, 0]
 
 

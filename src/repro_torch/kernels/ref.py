@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from repro_torch.core.quant import dequantize_factor, dequantize_kv_pages
+
 
 def bdmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (T, k, p), w: (k, q, p) -> (T, k, q)."""
@@ -23,6 +25,27 @@ def monarch_ref(x: torch.Tensor, L: torch.Tensor,
     ut = u.transpose(-1, -2)  # P
     y = torch.einsum("qsk,tqk->tqs", R, ut)
     return y.reshape(T, q * s)
+
+
+def bdmm_q_ref(x: torch.Tensor, wq: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """Oracle for the quantized bdmm kernel: dequantize, then the fp32
+    einsum.  x: (T, k, p); wq: (k, q, p[/2]) int8; scale: (k, 1, 1).
+    The dequantize is ``core.quant``'s own (int -> fp32 cast, one fp32
+    multiply), the rounding the kernels share."""
+    w = dequantize_factor(wq, scale, unpacked_dim=x.shape[-1])
+    return torch.einsum("tkp,kqp->tkq", x.float(), w)
+
+
+def monarch_q_ref(x: torch.Tensor, Lq: torch.Tensor, Ls: torch.Tensor,
+                  Rq: torch.Tensor, Rs: torch.Tensor) -> torch.Tensor:
+    """Oracle for the quantized fused Monarch kernel: dequantize both
+    factors, then the fp32 folded product."""
+    k = Ls.shape[-3]
+    p = x.shape[-1] // k
+    L = dequantize_factor(Lq, Ls, unpacked_dim=p)
+    R = dequantize_factor(Rq, Rs, unpacked_dim=k)
+    return monarch_ref(x.float(), L, R)
 
 
 def paged_attention_span_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -52,6 +75,21 @@ def paged_attention_span_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.where(valid[..., None, None], out, 0.0).to(q.dtype)
 
 
+def paged_attention_span_q_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, k_scales: torch.Tensor,
+                               v_scales: torch.Tensor,
+                               page_table: torch.Tensor, start: torch.Tensor,
+                               span_len: torch.Tensor,
+                               window) -> torch.Tensor:
+    """Dequant-then-attend oracle for int8 pages: dequantize the whole pool
+    under its (P, KV) scales with ``core.quant``'s cast-multiply, then the
+    plain span oracle."""
+    return paged_attention_span_ref(
+        q, dequantize_kv_pages(k_pages, k_scales),
+        dequantize_kv_pages(v_pages, v_scales), page_table, start, span_len,
+        window)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, page_table: torch.Tensor,
                         lengths: torch.Tensor, window) -> torch.Tensor:
@@ -63,5 +101,6 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out[:, 0]
 
 
-__all__ = ["bdmm_ref", "monarch_ref", "paged_attention_span_ref",
+__all__ = ["bdmm_ref", "monarch_ref", "bdmm_q_ref", "monarch_q_ref",
+           "paged_attention_span_ref", "paged_attention_span_q_ref",
            "paged_attention_ref"]

@@ -11,7 +11,11 @@ variance, RMSNorm scales by ``1 + scale``, and RoPE angles are fp32.
 Page writes are IN PLACE: the reference's functional ``.at[].set`` under a
 donated pool becomes an indexed assignment into the pool's tensors.
 Padding and shared-prefix positions all land on the sink page 0, where
-duplicate writes race harmlessly (the sink is never read unmasked).
+duplicate writes race harmlessly (the sink is never read unmasked).  An
+int8 pool (``kv_dtype="int8"``) carries (P, KV) fp32 ``k_scales`` /
+``v_scales`` beside its pages; fresh rows are quantized into it in place by
+``core.quant.quantize_kv_write`` and read back dequantized, on chip by the
+int8 span kernel or on the gathered blocks by the dense fallback.
 
 MoE, the ring cache and cross-attention are not ported yet and raise
 ``NotImplementedError``.
@@ -26,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.linear import linear_apply, linear_init
+from repro_torch.core.quant import dequantize_kv_pages, quantize_kv_write
 from repro_torch.kernels.paged import GLOBAL_WINDOW
 from repro_torch.models.config import ModelConfig
 
@@ -228,7 +233,9 @@ def attention_apply(
 def paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
                      kv_dtype: Optional[str] = None, device=None) -> dict:
     """One layer's share of the paged KV pool: ``n_pages`` fixed-size pages
-    stored at ``kv_dtype`` ("fp32" | "bf16"; None keeps the model dtype)."""
+    stored at ``kv_dtype`` ("fp32" | "bf16" | "int8"; None keeps the model
+    dtype).  "int8" adds one fp32 scale per (page, kv_head) for K and V
+    independently (``k_scales``/``v_scales``, (n_pages, KV))."""
     kv, hd = cfg.n_kv_heads, cfg.hd
     if kv_dtype is None:
         page_dtype = dtype
@@ -237,12 +244,17 @@ def paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
     elif kv_dtype == "bf16":
         page_dtype = torch.bfloat16
     elif kv_dtype == "int8":
-        raise NotImplementedError("int8 KV pages are not ported yet")
+        page_dtype = torch.int8
     else:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     shape = (n_pages, page_size, kv, hd)
-    return {"k_pages": torch.zeros(shape, dtype=page_dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=page_dtype, device=device)}
+    cache = {"k_pages": torch.zeros(shape, dtype=page_dtype, device=device),
+             "v_pages": torch.zeros(shape, dtype=page_dtype, device=device)}
+    if kv_dtype == "int8":
+        for name in ("k_scales", "v_scales"):
+            cache[name] = torch.zeros((n_pages, kv), dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
@@ -255,8 +267,17 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
     Positions past a row's ``span_len`` and below its ``write_start`` are
     redirected to the sink page 0; unallocated table entries point at the
     sink too and are never attended (the causal mask admits only keys at
-    positions <= q_pos)."""
+    positions <= q_pos).
+
+    An int8 pool quantizes the span rows into its pages with
+    ``quantize_kv_write``; the stored-row rescale runs over the span's
+    logical page range read from the page table (``ceil(S / page) + 1``
+    entries a row), which covers every non-sink page the writes name, and
+    any extra page (a shared one, the sink) rescales by exactly 1.0."""
     kp, vp = cache["k_pages"], cache["v_pages"]
+    quantized = "k_scales" in cache
+    ks = cache.get("k_scales")
+    vs = cache.get("v_scales")
     pg = kp.shape[1]
     B, S = q_pos.shape
     MP = page_table.shape[1]
@@ -272,8 +293,17 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
         if write_start is not None:
             valid &= q_pos >= write_start.long()[:, None]
         phys = torch.where(valid, phys, torch.zeros_like(phys))
-    kp[phys, off] = k.to(kp.dtype)
-    vp[phys, off] = v.to(vp.dtype)
+    if quantized:
+        nK = (S + pg - 1) // pg + 1
+        jcols = torch.clamp(
+            q_pos[:, :1] // pg + torch.arange(nK, device=q.device)[None, :],
+            0, MP - 1)
+        resc = torch.gather(pt, 1, jcols)                     # (B, nK)
+        quantize_kv_write(kp, ks, phys, off, k, rescale_phys=resc)
+        quantize_kv_write(vp, vs, phys, off, v, rescale_phys=resc)
+    else:
+        kp[phys, off] = k.to(kp.dtype)
+        vp[phys, off] = v.to(vp.dtype)
 
     from repro_torch.kernels.ops import paged_dispatch
 
@@ -286,17 +316,24 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
         win = GLOBAL_WINDOW if window is None else int(window)
         if S == 1 and span_len is None:
             out = paged_attention(q[:, 0], kp, vp, page_table,
-                                  q_pos[:, 0] + 1, win)
+                                  q_pos[:, 0] + 1, win, k_scales=ks,
+                                  v_scales=vs)
             return out[:, None], cache
         sp = (torch.full((B,), S, dtype=torch.int32, device=q.device)
               if span_len is None else span_len)
         out = paged_attention_span(q, kp, vp, page_table, q_pos[:, 0], sp,
-                                   win)
+                                   win, k_scales=ks, v_scales=vs)
         return out, cache
 
-    # dense-gather fallback (the engine counts the reason)
-    kk = kp[pt].reshape(B, MP * pg, *kp.shape[2:])  # (B,T,KV,hd)
-    vv = vp[pt].reshape(B, MP * pg, *vp.shape[2:])
+    # dense-gather fallback (the engine counts the reason); int8 pages are
+    # gathered at their stored width, then dequantized
+    if quantized:
+        kk = dequantize_kv_pages(kp[pt], ks[pt]).to(dtype)
+        vv = dequantize_kv_pages(vp[pt], vs[pt]).to(dtype)
+    else:
+        kk, vv = kp[pt], vp[pt]
+    kk = kk.reshape(B, MP * pg, *kp.shape[2:])  # (B,T,KV,hd)
+    vv = vv.reshape(B, MP * pg, *vp.shape[2:])
     kj = torch.arange(MP * pg, device=q.device)[None, None, :]
     valid = kj <= q_pos[..., None]  # (B,S,T)
     if window is not None:

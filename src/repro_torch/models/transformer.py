@@ -162,7 +162,9 @@ def init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int,
                     device: DeviceLike = None) -> dict:
     """Paged KV pool for the whole stack, stacked on a leading layer axis:
     {"layers": {"attn": {"k_pages": (L, P, page, KV, hd), "v_pages": ...}}}.
-    Page 0 is the sink page — free slots' page tables point at it."""
+    Page 0 is the sink page — free slots' page tables point at it.
+    ``kv_dtype="int8"`` adds ``k_scales``/``v_scales`` (L, P, KV) fp32, one
+    scale per (page, kv_head), with the page axis at 1 like the pages."""
     _check_ported(cfg)
     one = L.paged_cache_init(cfg, n_pages, page_size, _dtype(cfg),
                              kv_dtype=kv_dtype, device=resolve_device(device))
@@ -173,7 +175,9 @@ def init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int,
 
 def cow_copy_pages(pool: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
     """Device half of a copy-on-write fork: copy whole pages ``src[i]`` ->
-    ``dst[i]`` in every layer's page arrays (page axis 1), in place.  The
+    ``dst[i]`` in every layer's page arrays (page axis 1), in place; an
+    int8 pool's scale rows share that axis, so page bytes and scales are
+    copied together and the fork dequantizes to the source's values.  The
     right-hand side is gathered before any write, so every source is read
     before a destination is written; sink-onto-sink padding entries are a
     no-op by value."""

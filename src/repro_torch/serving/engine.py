@@ -23,18 +23,25 @@ identical traffic.  What carries over unchanged:
     registry-backed ``stats``, lifecycle histograms and trace spans;
   * the kernel-dispatch counters (``kernel_dispatches``,
     ``dense_fallback_<reason>``), re-derived per step from the same
-    ``kernels.ops.paged_dispatch`` the layers consult.
+    ``kernels.ops.paged_dispatch`` the layers consult;
+  * the compressed decode path: ``fuse_projections`` (exact QKV fusion)
+    and ``quantize="int8"|"int4"`` (per-block factor quantization) are
+    applied once at load, on the engine's device
+    (``models.decode_path.prepare_decode_params``), and
+    ``kv_dtype="int8"`` stores the pool as int8 pages with per-(page, head)
+    fp32 scales (``core.quant``).  The factors are dequantized on chip by
+    ``monarch_fused_q`` / ``bdmm_q`` under ``backend="pallas"``, and the
+    pages by the int8 span kernel under ``use_paged_kernel``.
 
 Per step the host uploads one packed int32 buffer (span tokens, starts,
 span lengths, flags, fork points, page tables) from pinned memory without
 blocking, so the upload never waits for the device.
 
-Not ported yet (they raise ``NotImplementedError``): ``quantize``,
-``fuse_projections``, ``kv_dtype="int8"``, ``mesh``, ``fault_injector``,
-``heartbeat``, snapshot/restore, and sampling at ``temperature > 0`` (the
-reference draws with threefry keys; until those are ported bit-for-bit,
-the port serves greedy decoding only).  The legacy ``ServeEngine`` is not
-ported either.
+Not ported yet (they raise ``NotImplementedError``): ``mesh``,
+``fault_injector``, ``heartbeat``, snapshot/restore, and sampling at
+``temperature > 0`` (the reference draws with threefry keys; until those
+are ported bit-for-bit, the port serves greedy decoding only).  The legacy
+``ServeEngine`` is not ported either.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from repro_torch import DeviceLike, resolve_device, tree_to
 from repro_torch.core.quant import (BITS_BY_NAME, KV_DTYPE_BYTES,
                                     kv_page_bytes)
 from repro_torch.models import transformer as T
+from repro_torch.models.decode_path import prepare_decode_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_pool import PagedKVPool, PoolOOM, SINK_PAGE
 from repro_torch.serving.metrics import (Calibration, EngineStats,
@@ -163,10 +171,7 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"quantize must be one of {sorted(BITS_BY_NAME)} or None, "
                 f"got {quantize!r}")
-        unported = {"quantize": quantize is not None,
-                    "fuse_projections": fuse_projections,
-                    "kv_dtype='int8'": kv_dtype == "int8",
-                    "mesh": mesh is not None,
+        unported = {"mesh": mesh is not None,
                     "fault_injector": fault_injector is not None,
                     "heartbeat": heartbeat is not None}
         for name, used in unported.items():
@@ -176,7 +181,13 @@ class ContinuousBatchingEngine:
             cfg = dataclasses.replace(cfg, paged_kernel=True)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = tree_to(params, self.device)
+        params = tree_to(params, self.device)
+        if fuse_projections or quantize:
+            params = prepare_decode_params(
+                params, cfg, fuse=fuse_projections,
+                bits=BITS_BY_NAME.get(quantize))
+        self.params = params
+        self.weight_bits = BITS_BY_NAME.get(quantize, 32)
         self.page_size = page_size
         self.max_len = max_len
         self.max_pages_per_seq = math.ceil(max_len / page_size)

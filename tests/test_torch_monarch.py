@@ -231,10 +231,24 @@ def test_linear_apply_dense_bias_and_nested_d2s_container():
             **TOL["float32"])
 
 
-def test_quantized_container_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tlin.linear_apply({"Lq": 0, "Rq": 0, "Ls": 0, "Rs": 0},
-                          torch.zeros(2, 4))
+@pytest.mark.parametrize("backend", ["einsum", "pallas"])
+def test_quantized_container_matches_reference(backend):
+    """An int8 container made by the reference's ``quantize_monarch`` and
+    carried across as numpy goes through the port's ``linear_apply`` on
+    both backends (``monarch_mm_q``'s plain version, or dequantize then the
+    einsum product) to the reference's output."""
+    from repro.core import quant as jq
+
+    L, R = _factors(256, 512, 16, 16, seed=10)
+    jc = jq.quantize_monarch({"L": jnp.asarray(L), "R": jnp.asarray(R)}, 8)
+    tc = {k: torch.from_numpy(np.array(v)) for k, v in jc.items()}
+    x = np.random.default_rng(11).standard_normal((3, 256)).astype(
+        np.float32)
+    want = jlin.linear_apply(jc, jnp.asarray(x), backend=backend)
+    got = tlin.linear_apply(tc, torch.from_numpy(x), backend=backend)
+    assert got.shape == (3, 512) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["float32"])
 
 
 def test_init_monarch_matches_in_distribution():

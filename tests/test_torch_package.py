@@ -126,5 +126,10 @@ def test_cpu_wrappers_count_no_launches():
     L, R = torch.randn(4, 4, 16), torch.randn(4, 16, 4)
     ops.monarch_mm(x, L, R)
     ops.bdmm_mm(x.view(4, 4, 16), L)
+    from repro_torch.core.quant import quantize_monarch
+
+    qc = quantize_monarch({"L": L, "R": R}, bits=4)
+    ops.monarch_mm_q(x, qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
     assert launches() == {"monarch_fused": 0, "bdmm": 0,
-                          "paged_attention_span": 0}
+                          "paged_attention_span": 0, "monarch_fused_q": 0,
+                          "bdmm_q": 0, "paged_attention_span_q": 0}

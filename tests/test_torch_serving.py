@@ -272,9 +272,8 @@ def test_generate_compat_and_not_ported_options(model):
     assert tuple(out.shape) == (2, 3)
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], tserving.SamplingParams(temperature=0.7))
-    for kw in ({"quantize": "int8"}, {"fuse_projections": True},
-               {"kv_dtype": "int8"}, {"mesh": object()},
-               {"fault_injector": object()}, {"heartbeat": object()}):
+    for kw in ({"mesh": object()}, {"fault_injector": object()},
+               {"heartbeat": object()}):
         with pytest.raises(NotImplementedError):
             tserving.ContinuousBatchingEngine(tc, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
