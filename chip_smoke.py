@@ -27,11 +27,23 @@ Phases, each printed as one JSON object per line:
               shared prefixes that fork pages copy-on-write); again with
               int8 factors; and with int8 factors and int8 KV pages (stored
               pages and scales after one step, and token agreement)
+  5. tp       tensor parallelism on the one card: B7, the span kernel per
+              rank on its heads of the phase-2 pools (tp 2 and 4, float and
+              int8 pages), against its plain version and, concatenated,
+              ``torch.equal`` to B3/B6 on the whole pool; then TP = 2 ranks,
+              one spawned process each, sharing ``cuda:0`` over gloo (NCCL
+              refuses two ranks on one device): phase 4's fp32 traces
+              (tokens equal to the card's tp = 1, every step's logits within
+              PARITY_REL_TOL), the same traces over int8 KV pages (tokens
+              >= INT8_KV_TOKEN_AGREEMENT of tp = 1's) and phase 3's bf16
+              serve (a reading) with a profiled window; every rank runs 24
+              B7 launches and 144 local Monarch launches a step, no
+              float-page span launch and no dense fallback
 
-It exits non-zero on the first failed check.  The last lines are the
-per-kernel summary, the card's name and power limit from ``nvidia-smi``,
-and ``{"ok": true, "device": {...}}``.  It needs one CUDA device and never
-imports JAX or the reference package.
+It exits non-zero on the first failed check, and when a rank fails.  The
+last lines are the per-kernel summary, the card's name and power limit
+from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  It needs one
+CUDA device and never imports JAX or the reference package.
 """
 
 from __future__ import annotations
@@ -71,9 +83,13 @@ INT8_KV_STEP_REL_TOL = 3e-2
 # greedy tokens over whole traces with int8 KV: the reference's own bar
 # for int8 pages (tests/test_kv_quant.py:352)
 INT8_KV_TOKEN_AGREEMENT = 0.95
+# the serving phases' engine options (8 slots unless a phase says so)
+SERVE_KW = dict(max_slots=8, page_size=16, max_len=1024, chunk_size=64,
+                use_paged_kernel=True)
 
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
-           "monarch_fused_q", "bdmm_q", "paged_attention_span_q")
+           "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
+           "paged_attention_span_sharded", "paged_attention_span_sharded_q")
 REPLACES = {
     "monarch_fused": "src/repro/kernels/monarch.py:58",
     "bdmm": "src/repro/kernels/bdmm.py:49",
@@ -81,6 +97,8 @@ REPLACES = {
     "monarch_fused_q": "src/repro/kernels/monarch.py:115",
     "bdmm_q": "src/repro/kernels/bdmm.py:87",
     "paged_attention_span_q": "src/repro/kernels/paged.py:152",
+    "paged_attention_span_sharded": "src/repro/kernels/paged.py:240",
+    "paged_attention_span_sharded_q": "src/repro/kernels/paged.py:240",
 }
 SOURCES = {
     "monarch_fused": "src/repro_torch/kernels/csrc/monarch.cu",
@@ -89,7 +107,11 @@ SOURCES = {
     "monarch_fused_q": "src/repro_torch/kernels/csrc/monarch.cu",
     "bdmm_q": "src/repro_torch/kernels/csrc/bdmm.cu",
     "paged_attention_span_q": "src/repro_torch/kernels/csrc/paged.cu",
+    "paged_attention_span_sharded": "src/repro_torch/kernels/csrc/paged.cu",
+    "paged_attention_span_sharded_q": "src/repro_torch/kernels/csrc/paged.cu",
 }
+# ranks of the tensor-parallel phase: processes that share the one card
+TP = 2
 
 
 def emit(obj) -> None:
@@ -109,6 +131,188 @@ def bound_ms(n_bytes: float, flops: float,
     peak = BF16_FLOPS_PER_S if all_bf16 else FP32_FLOPS_PER_S
     tb, tf = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def _window(eng, n_steps: int) -> dict:
+    """Where ``n_steps`` engine steps' time goes: wall clock of
+    synchronized steps, the device's kernel time from torch.profiler, and
+    the host syncs PyTorch's sync debug mode detects."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # host ops also carry their kernels' device time
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = e.self_cuda_time_total
+        rows.append((dt / 1e3 / n_steps, e.key[:70], e.count))
+    rows.sort(reverse=True)
+    device = sum(r[0] for r in rows)
+    # calls that make the host wait for the device (PyTorch's sync debug
+    # mode warns on each one it detects); the engine means one a step, the
+    # harvest's read of the sampled tokens
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n_steps):
+                eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    return {"wall_ms_per_step": wall * 1e3,
+            "device_ms_per_step": device,
+            "device_busy_share": device / (wall * 1e3),
+            "host_syncs_per_step": syncs / n_steps,
+            "top_kernels_ms_per_step": [
+                [name, ms, n / n_steps] for ms, name, n in rows[:8]]}
+
+
+def _profile_serve(cfg, params, **engine_kw) -> dict:
+    """A fresh batch of 8 x 256-token prompts: one prefill step, then 8
+    decode steps once every request is decoding."""
+    import numpy as np
+
+    from repro_torch.serving import ContinuousBatchingEngine, SamplingParams
+
+    eng = ContinuousBatchingEngine(cfg, params, **{
+        **SERVE_KW, "max_slots": 8, **engine_kw})
+    rng = np.random.default_rng(4)
+    for _ in range(8):
+        eng.add_request(rng.integers(0, cfg.vocab, 256),
+                        SamplingParams(max_new_tokens=64))
+    prefill = _window(eng, 1)
+    while any(s.request.state.value != "running"
+              for s in eng.running.values()):
+        eng.step()
+    decode = _window(eng, 8)
+    return {"prefill_T512": prefill, "decode_T8": decode}
+
+
+def _drive(eng, prompts, stagger: int, max_new: int, what: str) -> list:
+    """Serve ``prompts`` to the end, one more every ``stagger`` steps (0:
+    all at once); returns the requests."""
+    from repro_torch.serving import SamplingParams
+
+    pending, reqs, steps = list(prompts), [], 0
+    while pending or eng.has_work():
+        if pending and (stagger == 0 or steps % stagger == 0):
+            while pending:
+                reqs.append(eng.add_request(
+                    pending.pop(0), SamplingParams(max_new_tokens=max_new)))
+                if stagger:
+                    break
+        eng.step()
+        steps += 1
+        require(steps < 1000, f"{what} did not finish")
+    return reqs
+
+
+def _checksum(tree) -> float:
+    """Sum of every parameter, in float64: equal trees, equal sums."""
+    from repro_torch import tree_map
+
+    leaves: list = []
+    tree_map(leaves.append, tree)
+    return float(sum(t.double().sum() for t in leaves))
+
+
+def _serve_prompts(vocab: int, n_req: int, lo: int, hi: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+            for _ in range(n_req)]
+
+
+def _recording(T, store: list, vocab: int):
+    """``T.paged_mixed_step`` that keeps every step's logits of the rows
+    with a span, over the real vocab (the padding slots are -1e30), on the
+    host."""
+    step = T.paged_mixed_step
+
+    def recording_step(params, tokens, start, span, *args, **kw):
+        lg, pool = step(params, tokens, start, span, *args, **kw)
+        store.append(lg[span > 0, :vocab].float().cpu())
+        return lg, pool
+    return step, recording_step
+
+
+def _tp_rank(mesh, jobs: dict) -> dict:
+    """One rank of phase 5: for each job, the full params from their seed
+    on this rank's device (then sliced by the engine), every trace served
+    to the end through the tensor-parallel engine, with its tokens,
+    counters, launches and wall time; optionally every step's logits and
+    a profiled window.  Also run with ``mesh=None`` for tp = 1 baselines."""
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    for job, spec in jobs.items():
+        cfg = spec["cfg"]
+        params = T.init_params(cfg, seed=spec["seed"], device=dev)
+        res = out[job] = {"checksum": _checksum(params), "traces": {}}
+        for name, (kw, prompts, stagger, max_new) in spec["traces"].items():
+            logits: list = []
+            step, recording_step = _recording(T, logits, cfg.vocab)
+            if spec.get("record"):
+                T.paged_mixed_step = recording_step
+            try:
+                eng = ContinuousBatchingEngine(cfg, params, mesh=mesh,
+                                               **({} if mesh else
+                                                  {"device": dev}), **kw)
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                reqs = _drive(eng, prompts, stagger, max_new,
+                              f"{job} {name}")
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                T.paged_mixed_step = step
+            eng.pool_host.check_invariants()
+            eng.kv.check_shards()
+            n_out = sum(len(r.output_tokens) for r in reqs)
+            res["traces"][name] = {
+                "tokens": [list(r.output_tokens) for r in reqs],
+                "stats": {k: eng.stats[k] for k in (
+                    "mixed_steps", "preemptions", "prefix_hit_tokens",
+                    "cow_forks", "kernel_dispatches", "dense_fallbacks")},
+                "launches": launches(), "seconds": dt,
+                "tokens_per_s": n_out / dt,
+                "pages_per_shard": eng.pool_host.n_pages - 1,
+                "local_page_shape": list(
+                    eng.pool["layers"]["attn"]["k_pages"].shape),
+                "logits": logits if mesh is None or mesh.rank == 0 else []}
+            del eng
+        if spec.get("profile"):
+            res["profile"] = _profile_serve(cfg, params, mesh=mesh)
+        del params
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return out
 
 
 def main() -> int:
@@ -138,7 +342,9 @@ def main() -> int:
                                              monarch_fused_q_plain)
     from repro_torch.kernels.paged import (GLOBAL_WINDOW,
                                            paged_attention_span,
-                                           paged_attention_span_plain)
+                                           paged_attention_span_plain,
+                                           paged_attention_span_sharded)
+    from repro_torch.launch.mesh import Mesh, run_ranks
     from repro_torch.models import transformer as T
     from repro_torch.models.decode_path import (decode_weight_bytes,
                                                 prepare_decode_params)
@@ -318,9 +524,9 @@ def main() -> int:
 
     def sdpa_args(q, kp, vp, st, S, win):
         """Library yardstick: SDPA over pre-gathered contiguous KV."""
-        T_all = MP * pg
-        kk = kp[pt.long()].reshape(B, T_all, KV, hd).transpose(1, 2)
-        vv = vp[pt.long()].reshape(B, T_all, KV, hd).transpose(1, 2)
+        T_all, kvh = MP * pg, kp.shape[2]
+        kk = kp[pt.long()].reshape(B, T_all, kvh, hd).transpose(1, 2)
+        vv = vp[pt.long()].reshape(B, T_all, kvh, hd).transpose(1, 2)
         t = torch.arange(T_all, device=dev)[None, None, :]
         qpos = st.long()[:, None] + torch.arange(S, device=dev)[None]
         mask = ((t <= qpos[..., None]) & (qpos[..., None] - t < win))[:, None]
@@ -662,12 +868,9 @@ def main() -> int:
 
     # -- 3. serve gpt2-medium at full width ---------------------------------
     def serve(cfg, params, n_req, lo, hi, new_tokens, seed, **engine_kw):
-        kw = dict(max_slots=8, page_size=16, max_len=1024, chunk_size=64,
-                  use_paged_kernel=True)
-        eng = ContinuousBatchingEngine(cfg, params, **{**kw, **engine_kw})
-        rng = np.random.default_rng(seed)
-        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
-                   for _ in range(n_req)]
+        eng = ContinuousBatchingEngine(cfg, params,
+                                       **{**SERVE_KW, **engine_kw})
+        prompts = _serve_prompts(cfg.vocab, n_req, lo, hi, seed)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -692,6 +895,9 @@ def main() -> int:
     eng, reqs, counts, dt, out, prompt_toks = serve(cfg, params, 8, 32, 256,
                                                     32, seed=0)
     st_ = eng.stats
+    # what the tensor-parallel serve of phase 5 is read against
+    bf16_serve = {"tokens": [list(r.output_tokens) for r in reqs],
+                  "checksum": _checksum(params), "steps": st_["mixed_steps"]}
     fp_serve = {"tokens_per_s": out / dt, "kv_dtype": eng.kv_dtype,
                 "pool_pages": eng.pool_host.n_pages - 1,
                 "pool_bytes": eng.pool_host.stats().pool_bytes,
@@ -715,72 +921,7 @@ def main() -> int:
     serve_counts = dict(counts)
     del eng
 
-    # where a step's time goes: wall clock of synchronized steps, and the
-    # device's kernel time from torch.profiler (first the prefill steps of
-    # a fresh batch, then decode steps once every request is decoding)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(eng, n_steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n_steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_steps):
-                eng.step()
-            torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue  # host ops also carry their kernels' device time
-            dt = getattr(e, "self_device_time_total", None)
-            if dt is None:
-                dt = e.self_cuda_time_total
-            rows.append((dt / 1e3 / n_steps, e.key[:70], e.count))
-        rows.sort(reverse=True)
-        device = sum(r[0] for r in rows)
-        # calls that make the host wait for the device (PyTorch's sync
-        # debug mode warns on each one it detects); the engine means one
-        # a step, the harvest's read of the sampled tokens
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                for _ in range(n_steps):
-                    eng.step()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
-                    for w in caught)
-        return {"wall_ms_per_step": wall * 1e3,
-                "device_ms_per_step": device,
-                "device_busy_share": device / (wall * 1e3),
-                "host_syncs_per_step": syncs / n_steps,
-                "top_kernels_ms_per_step": [
-                    [name, ms, n / n_steps] for ms, name, n in rows[:8]]}
-
-    def profile_serve(cfg, params, **engine_kw):
-        eng = ContinuousBatchingEngine(cfg, params, max_slots=8,
-                                       page_size=16, max_len=1024,
-                                       chunk_size=64, use_paged_kernel=True,
-                                       **engine_kw)
-        rng = np.random.default_rng(4)
-        for _ in range(8):
-            eng.add_request(rng.integers(0, cfg.vocab, 256),
-                            SamplingParams(max_new_tokens=64))
-        prefill = window(eng, 1)
-        while any(s.request.state.value != "running"
-                  for s in eng.running.values()):
-            eng.step()
-        decode = window(eng, 8)
-        return {"prefill_T512": prefill, "decode_T8": decode}
-
-    emit({"phase": "serve_profile", **profile_serve(cfg, params)})
+    emit({"phase": "serve_profile", **_profile_serve(cfg, params)})
 
     # -- 3b. the compressed decode path: fused QKV, int8/int4 factors, int8
     # KV pages --------------------------------------------------------------
@@ -878,7 +1019,7 @@ def main() -> int:
           "quantize_kv_write_wall_ms_per_call": kv_write_ms,
           "quantize_kv_write_wall_ms_per_step": kv_write_ms * 2
           * cfg.n_layers,
-          **profile_serve(cfg, params, **qopts)})
+          **_profile_serve(cfg, params, **qopts)})
 
     eng, reqs, counts, dt, out, _ = serve(
         cfg, params, 4, 32, 64, 8, seed=2,
@@ -976,12 +1117,7 @@ def main() -> int:
     # identity every step's logits (rows with a span) are held to the
     # same limit as the single step above
     step_logits: list = []
-    mixed_step = T.paged_mixed_step
-
-    def recording_step(params, tokens, start, span, *args, **kw):
-        lg, pool = mixed_step(params, tokens, start, span, *args, **kw)
-        step_logits.append(lg[span > 0, :cfg.vocab].float().cpu())
-        return lg, pool
+    mixed_step, recording_step = _recording(T, step_logits, cfg.vocab)
 
     prefix = list(prng.integers(0, cfg.vocab, 40))
     shared = [np.asarray(prefix + [(17 * i + j) % cfg.vocab
@@ -1007,6 +1143,7 @@ def main() -> int:
     }
     stat_keys = ("mixed_steps", "preemptions", "prefix_hit_tokens",
                  "cow_forks", "kernel_dispatches", "dense_fallbacks")
+    card_runs: dict = {}   # (phase, trace) -> the card's run, for phase 5
 
     def run_traces(phase: str, engine_kw: dict, exact: bool,
                    kernels: tuple[str, str]) -> None:
@@ -1023,25 +1160,17 @@ def main() -> int:
                         cfg32, p_gpu if d == "cuda" else p_cpu, page_size=16,
                         use_paged_kernel=True, device=d, **kw, **engine_kw)
                     reset_launches()
-                    pending, reqs, steps = list(prompts), [], 0
-                    while pending or eng.has_work():
-                        if pending and (stagger == 0 or steps % stagger == 0):
-                            while pending:
-                                reqs.append(eng.add_request(
-                                    pending.pop(0),
-                                    SamplingParams(max_new_tokens=8)))
-                                if stagger:
-                                    break
-                        eng.step()
-                        steps += 1
-                        require(steps < 1000,
-                                f"trace {tname} on {d} did not finish")
+                    reqs = _drive(eng, prompts, stagger, 8,
+                                  f"trace {tname} on {d}")
                     eng.pool_host.check_invariants()
                     outs[d] = [list(r.output_tokens) for r in reqs]
                     stats[d] = {k: eng.stats[k] for k in stat_keys}
                     seen[d] = list(step_logits)
                     if d == "cuda":
                         counts = launches()
+                        card_runs[(phase, tname)] = {
+                            "tokens": outs[d], "logits": seen[d],
+                            "stats": stats[d]}
                 same_steps = len(seen["cuda"]) == len(seen["cpu"]) and all(
                     a.shape == b.shape
                     for a, b in zip(seen["cuda"], seen["cpu"]))
@@ -1159,6 +1288,206 @@ def main() -> int:
     del pool_card, pool_cpu, pool_n
     run_traces("parity_tokens_int8_kv", qopts, False,
                ("monarch_fused_q", "paged_attention_span_q"))
+
+    # -- 5. tensor parallelism on the one card ------------------------------
+    # 5a. B7: the span kernel per rank on its heads of the phase-2 pools;
+    # the ranks' outputs concatenated are the kernel on the whole pool
+    def head_slices(tp, r, q, kp, vp, sc):
+        h = slice(r * H // tp, (r + 1) * H // tp)
+        kh = slice(r * KV // tp, (r + 1) * KV // tp)
+        return (q[:, :, h].contiguous(), kp[:, :, kh].contiguous(),
+                vp[:, :, kh].contiguous(),
+                {k: v[:, kh].contiguous() for k, v in sc.items()})
+
+    for tp in (2, 4):
+        for cname, (S, starts, spans) in cases.items():
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            sl = torch.tensor(spans, dtype=torch.int32, device=dev)
+            for win in (GLOBAL_WINDOW, 48):
+                for dt in (f32, bf16):
+                    for quant in (False, True):
+                        dn = dn_of(dt)
+                        name = "paged_attention_span_sharded" + (
+                            "_q" if quant else "")
+                        q = randn(B, S, H, hd, dtype=dt)
+                        kp, vp, sc = ((kq, vq, dict(k_scales=ks, v_scales=vs))
+                                      if quant else (k32.to(dt), v32.to(dt),
+                                                     {}))
+                        whole = paged_attention_span(q, kp, vp, pt, st, sl,
+                                                     win, **sc)
+                        outs, err, ok = [], 0.0, True
+                        for r in range(tp):
+                            ql, kl, vl, scl = head_slices(tp, r, q, kp, vp,
+                                                          sc)
+                            mesh_r = Mesh(model=tp, rank=r, device=dev)
+                            o = paged_attention_span_sharded(
+                                ql, kl, vl, pt, st, sl, win, mesh_r,
+                                n_heads=H, n_kv_heads=KV, **scl)
+                            e, okr = close(o, paged_attention_span_plain(
+                                ql, kl, vl, pt, st, sl, win,
+                                scl.get("k_scales"), scl.get("v_scales")),
+                                dn)
+                            outs.append(o)
+                            err, ok = max(err, e), ok and okr
+                        same = torch.equal(torch.cat(outs, dim=2), whole)
+                        errs[name] = max(errs[name], err)
+                        line = {"phase": "kernel", "kernel": name, "tp": tp,
+                                "case": cname, "S": S, "window": win,
+                                "q_dtype": dn,
+                                "page_dtype": "int8" if quant else dn,
+                                "local_heads": H // tp,
+                                "local_kv_heads": KV // tp,
+                                "max_abs_err": err, "tol": TOL[dn],
+                                "bitwise_concat_vs_unsharded": same}
+                        if win == GLOBAL_WINDOW and cname != "prefill512":
+                            # rank 0's launch, at its local shapes
+                            ql, kl, vl, scl = head_slices(tp, 0, q, kp, vp,
+                                                          sc)
+                            mesh0 = Mesh(model=tp, rank=0, device=dev)
+                            n_pages, n_pairs = span_work(starts, spans, win)
+                            eb, pb = q.element_size(), kl.element_size()
+                            bms, by = bound_ms(
+                                2 * B * S * (H // tp) * hd * eb
+                                + 2 * n_pages * pg * (KV // tp) * hd * pb
+                                + (2 * n_pages * (KV // tp) * 4 if quant
+                                   else 0),
+                                4 * hd * (H // tp) * n_pairs,
+                                all_bf16=dt == bf16 and not quant)
+                            if quant:
+                                kd_l = dequantize_kv_pages(
+                                    kl, scl["k_scales"]).to(dt)
+                                vd_l = dequantize_kv_pages(
+                                    vl, scl["v_scales"]).to(dt)
+                            else:
+                                kd_l, vd_l = kl, vl
+                            qq, kk, vv, mask = sdpa_args(ql, kd_l, vd_l, st,
+                                                         S, win)
+                            args = (ql, kl, vl, pt, st, sl, win)
+                            line.update(timings(
+                                kernel=lambda: paged_attention_span_sharded(
+                                    *args, mesh0, n_heads=H, n_kv_heads=KV,
+                                    **scl),
+                                plain=lambda: paged_attention_span_plain(
+                                    *args, scl.get("k_scales"),
+                                    scl.get("v_scales")),
+                                library=lambda: F.scaled_dot_product_attention(
+                                    qq, kk, vv, attn_mask=mask)))
+                            line.update(bound_ms=bms, bound_by=by,
+                                        pages_read=n_pages)
+                            if (tp == TP and cname == "decode"
+                                    and dt == bf16):
+                                summary[name] = summary_entry(line, bms, by)
+                        emit(line)
+                        require(ok and same, f"{name} tp={tp} {cname} "
+                                f"window={win} {dn}: err {err}, concat "
+                                f"bitwise {same}")
+
+    # 5b. the tp = 1 runs on the card the ranks are held to: phase 4's fp32
+    # traces and phase 3's bf16 serve, and the traces again with fp32
+    # factors over int8 KV pages (phase 4c's had int8 factors, which
+    # tensor parallelism does not take)
+    del q_gpu, q_cpu
+    fp32_traces = {t: (dict(page_size=16, use_paged_kernel=True, **kw),
+                       [np.asarray(p) for p in prompts], stagger, 8)
+                   for t, (kw, prompts, stagger) in traces.items()}
+    int8_traces = {t: ({**kw, "kv_dtype": "int8"}, *rest)
+                   for t, (kw, *rest) in fp32_traces.items()}
+    int8_base = _tp_rank(None, {"int8_kv": {"cfg": cfg32, "seed": 3,
+                                            "traces": int8_traces}})
+    int8_base = int8_base["int8_kv"]["traces"]
+    p32_sum = _checksum(p_gpu)
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+    # 5c. TP ranks, one process each, sharing the card over gloo
+    jobs = {
+        "fp32": {"cfg": cfg32, "seed": 3, "traces": fp32_traces,
+                 "record": True},
+        "int8_kv": {"cfg": cfg32, "seed": 3, "traces": int8_traces},
+        "bf16": {"cfg": cfg, "seed": 0, "profile": True, "traces": {
+            "serve": ({**SERVE_KW, "pool_bytes": fp_serve["pool_bytes"]},
+                      _serve_prompts(cfg.vocab, 8, 32, 256, 0), 0, 32)}},
+    }
+    t0 = time.perf_counter()
+    ranks = run_ranks(_tp_rank, TP, backend="gloo", device="cuda:0",
+                      args=(jobs,), timeout_s=900)
+    emit({"phase": "tp_world", "ranks": TP, "backend": "gloo",
+          "device": "cuda:0 (shared)", "seconds": time.perf_counter() - t0,
+          "max_memory_allocated": [r["max_memory_allocated"]
+                                   for r in ranks]})
+    bases = {"fp32": {t: card_runs[("parity_tokens", t)] for t in traces},
+             "int8_kv": int8_base, "bf16": {"serve": bf16_serve}}
+    checksums = {"fp32": p32_sum, "int8_kv": p32_sum,
+                 "bf16": bf16_serve["checksum"]}
+    for job, spec in jobs.items():
+        require(all(r[job]["checksum"] == checksums[job] for r in ranks),
+                 f"tp {job}: the ranks initialized other weights")
+        for tname in spec["traces"]:
+            rs = [r[job]["traces"][tname] for r in ranks]
+            base = bases[job][tname]
+            toks = rs[0]["tokens"]
+            flat = [(a, b) for oa, ob in zip(toks, base["tokens"])
+                    for a, b in zip(oa, ob)]
+            agree = sum(a == b for a, b in flat) / max(len(flat), 1)
+            line = {"phase": "tp_serve", "job": job, "trace": tname,
+                    "tp": TP, "tokens": toks, "tp1_tokens": base["tokens"],
+                    "identical_to_tp1": toks == base["tokens"],
+                    "token_agreement": agree,
+                    "ranks_identical": all(r["tokens"] == toks for r in rs),
+                    "stats": rs[0]["stats"],
+                    "per_rank": [{k: r[k] for k in (
+                        "launches", "seconds", "tokens_per_s",
+                        "pages_per_shard", "local_page_shape")}
+                        for r in rs]}
+            if job == "fp32":
+                a, b = rs[0]["logits"], base["logits"]
+                same_steps = len(a) == len(b) and all(
+                    x.shape == y.shape for x, y in zip(a, b))
+                require(same_steps, f"tp {tname}: other steps than tp=1")
+                line["max_step_rel_err"] = max(
+                    float((x - y).abs().max() / y.abs().max())
+                    for x, y in zip(a, b))
+                line["rel_tol"] = PARITY_REL_TOL
+            emit(line)
+            require(line["ranks_identical"],
+                    f"tp {job} {tname}: the ranks' tokens differ")
+            steps = rs[0]["stats"]["mixed_steps"]
+            span_k = ("paged_attention_span_sharded_q" if job == "int8_kv"
+                      else "paged_attention_span_sharded")
+            for r in rs:
+                c = r["launches"]
+                require(r["stats"] == rs[0]["stats"],
+                        f"tp {job} {tname}: the ranks' counters differ")
+                require(c[span_k] == cfg.n_layers * steps
+                        and c["monarch_fused"] == 6 * cfg.n_layers * steps
+                        and c["paged_attention_span"] == 0
+                        and c["paged_attention_span_q"] == 0
+                        and c["bdmm"] == 0
+                        and r["stats"]["dense_fallbacks"] == 0,
+                        f"tp {job} {tname}: launches {c} over {steps} steps")
+            if job == "fp32":
+                require(toks == base["tokens"],
+                        f"tp fp32 {tname}: tokens differ from tp=1")
+                require(line["max_step_rel_err"] <= PARITY_REL_TOL,
+                        f"tp fp32 {tname}: step logits differ: "
+                        f"{line['max_step_rel_err']}")
+                require(rs[0]["stats"] == base["stats"],
+                        f"tp fp32 {tname}: counters differ from tp=1")
+            elif job == "int8_kv":
+                require(agree >= INT8_KV_TOKEN_AGREEMENT,
+                        f"tp int8 KV {tname}: token agreement {agree}")
+        if spec.get("profile"):
+            emit({"phase": "tp_profile", "job": job,
+                  "note": "two ranks time-slice one card without MPS",
+                  "per_rank": [r[job]["profile"] for r in ranks]})
+    # the main path's launches: the bf16 serve's (B7), the int8-KV traces'
+    # (B7 over int8 pages); counts of rank 0
+    serve_counts["paged_attention_span_sharded"] = \
+        ranks[0]["bf16"]["traces"]["serve"]["launches"][
+            "paged_attention_span_sharded"]
+    serve_counts["paged_attention_span_sharded_q"] = sum(
+        ranks[0]["int8_kv"]["traces"][t]["launches"][
+            "paged_attention_span_sharded_q"] for t in int8_traces)
 
     # -- summary --------------------------------------------------------------
     kernels = []

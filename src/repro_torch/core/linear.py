@@ -16,6 +16,11 @@ A quantized container (``core.quant``: int8/int4 ``Lq``/``Rq`` with
 per-block ``Ls``/``Rs``) takes ``kernels.ops.monarch_mm_q`` on the kernel
 backend, and on the einsum backend is dequantized to fp32 factors first, so
 it then follows the einsum row above.
+
+Tensor parallelism follows the Megatron pairs of ``sharding.params``: a
+column-parallel linear is a smaller linear of the same kind and needs
+nothing here; a row-parallel one passes ``reduce=`` its mesh and ends in
+an all-reduce.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.core import monarch as mn
 from repro_torch.core import quant as qn
+from repro_torch.sharding.api import all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,14 +81,23 @@ def is_monarch(params: dict[str, Any]) -> bool:
 
 
 def linear_apply(params: dict[str, Any], x: torch.Tensor,
-                 backend: str = "einsum") -> torch.Tensor:
+                 backend: str = "einsum", reduce=None) -> torch.Tensor:
     """y = x @ W (+ b).  Dispatches on the parameter structure (including
-    D2S-converted dense layers, where ``w`` becomes an {L, R} dict)."""
+    D2S-converted dense layers, where ``w`` becomes an {L, R} dict).
+
+    Under tensor parallelism ``params`` are this rank's slices
+    (``sharding.params.shard_params``).  A row-parallel linear passes
+    ``reduce``, its mesh: ``x`` is then this rank's input columns, the
+    product a partial ``y``, summed over the mesh's ranks by one
+    all-reduce before the (whole) bias is added once."""
     if "w" in params and isinstance(params["w"], dict):
         inner = dict(params["w"])
         if "b" in params:
             inner["b"] = params["b"]
-        return linear_apply(inner, x, backend=backend)
+        return linear_apply(inner, x, backend=backend, reduce=reduce)
+    if qn.is_quantized(params) and reduce is not None:
+        raise NotImplementedError(
+            "quantized factors under tensor parallelism are not ported yet")
     if qn.is_quantized(params):
         if backend == "pallas":
             from repro_torch.kernels import ops as kops  # lazy: avoid cycle
@@ -104,6 +119,8 @@ def linear_apply(params: dict[str, Any], x: torch.Tensor,
         w = params["w"]
         dt = torch.promote_types(x.dtype, w.dtype)
         y = torch.matmul(x.to(dt), w.to(dt))
+    if reduce is not None:
+        y = all_reduce_sum(y, reduce)
     if "b" in params:
         y = y + params["b"]
     return y
@@ -116,6 +133,8 @@ def is_quantized(params: dict[str, Any]) -> bool:
 
 
 def linear_out_dim(params: dict[str, Any]) -> int:
+    if isinstance(params.get("w"), dict):   # D2S-nested factors
+        return linear_out_dim(params["w"])
     if qn.is_quantized(params):
         return qn.quantized_out_dim(params)
     if is_monarch(params):

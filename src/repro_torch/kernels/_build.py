@@ -38,7 +38,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else (the CPU path never counts)
 LAUNCHES = {"monarch_fused": 0, "bdmm": 0, "paged_attention_span": 0,
-            "monarch_fused_q": 0, "bdmm_q": 0, "paged_attention_span_q": 0}
+            "monarch_fused_q": 0, "bdmm_q": 0, "paged_attention_span_q": 0,
+            "paged_attention_span_sharded": 0,
+            "paged_attention_span_sharded_q": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -19,8 +19,13 @@ reject reason keeps the reference's name ``"vmem"`` so the engine counters
 stay comparable across packages.  Int8 pages need no argument of their
 own: the int8 instance of the span kernel dequantizes into the same fp32
 tile and reads its two scales into registers, so its shared memory is the
-float kernel's.  Tensor-parallel pools, which the reference's decision also
-weighs, are not ported yet.
+float kernel's.  Under tensor parallelism the kernel runs per rank on its
+own heads (B7) when the pool's KV heads are split as many ways as the
+model; a pool left whole on every rank of a ``tp`` > 1 axis
+(``pool_replicated``, ``sharding.params.TPPlan.pool_replicated``) takes
+the dense gather with the reason ``"gqa_replicated"``, as in the
+reference.  The per-rank head count does not enter the fit: the kernel
+runs one block per query head, whatever their number.
 
 Which path a call takes depends only on shapes: a CUDA tensor launches the
 kernel, a CPU tensor runs the kernel's plain version.
@@ -85,17 +90,23 @@ PAGED_DISPATCH_REASONS = ("kernel", "disabled", "softcap", "gqa_replicated",
 
 @functools.lru_cache(maxsize=None)
 def paged_dispatch(head_dim: int, page_size: int, *,
-                   paged_kernel: bool = True, softcap: bool = False) -> str:
+                   paged_kernel: bool = True, softcap: bool = False,
+                   pool_replicated: bool = False) -> str:
     """``"kernel"`` when the span kernel runs, else the reject reason (one
     of :data:`PAGED_DISPATCH_REASONS`): ``"disabled"`` — the config never
     asked for it; ``"softcap"`` — logit soft-capping has no kernel;
-    ``"vmem"`` — not even a one-row query tile fits shared memory.  It
-    takes no ``quantized`` argument: the int8-page instance of the kernel
-    uses the float instance's shared memory, so one rule decides both."""
+    ``"gqa_replicated"`` — a ``tp`` > 1 ``"model"`` axis over a pool whose
+    KV heads are not split ``tp`` ways (``pool_replicated``), where only
+    the dense gather runs on each rank's query heads; ``"vmem"`` — not
+    even a one-row query tile fits shared memory.  It takes no
+    ``quantized`` argument: the int8-page instance of the kernel uses the
+    float instance's shared memory, so one rule decides both."""
     if not paged_kernel:
         return "disabled"
     if softcap:
         return "softcap"
+    if pool_replicated:
+        return "gqa_replicated"
     return "kernel" if paged_span_fits(head_dim, page_size) else "vmem"
 
 

@@ -30,6 +30,10 @@ block's shared memory independent of the span, so any span runs here.
 
 ``paged_attention_span`` launches the kernel for CUDA tensors and uses the
 plain version ``paged_attention_span_plain`` only for CPU tensors.
+
+Under tensor parallelism (B7, ``paged_attention_span_sharded``) each rank
+launches the same kernel on its own heads: the grid and the page loop do
+not depend on the head count, so the local launch needs no other source.
 """
 
 from __future__ import annotations
@@ -132,6 +136,15 @@ def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
     (``GLOBAL_WINDOW`` = global).  ``k_scales``/``v_scales`` (P, KV) fp32:
     the per-(page, head) scales of int8 pages, which then run the int8
     instance of the kernel.  Returns (B, S, H, hd) in q's dtype."""
+    return _span(q, k_pages, v_pages, page_table, start, span_len, window,
+                 k_scales, v_scales, "paged_attention_span")
+
+
+def _span(q, k_pages, v_pages, page_table, start, span_len, window,
+          k_scales, v_scales, counter: str) -> torch.Tensor:
+    """The span kernel's launch (or plain version, for CPU tensors);
+    a launch adds one to ``counter`` (``counter + "_q"`` for int8
+    pages)."""
     B, S, H, hd = q.shape
     P, pg, KV, hd2 = k_pages.shape
     if hd2 != hd or v_pages.shape != k_pages.shape or H % KV:
@@ -153,15 +166,15 @@ def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
     scales = (k_scales, v_scales) if quantized else ()
     if dev.type != "cuda" or any(t.device != dev for t in (
             k_pages, v_pages, page_table, start, span_len, *scales)):
-        raise ValueError("paged_attention_span: every tensor must be on one "
-                         "CUDA device")
+        raise ValueError(f"{counter}: every tensor must be on one CUDA "
+                         f"device")
     if k_pages.dtype != v_pages.dtype:
-        raise TypeError("paged_attention_span: k and v pages differ in dtype")
+        raise TypeError(f"{counter}: k and v pages differ in dtype")
     if quantized and not all(t.dtype == torch.float32 for t in scales):
-        raise TypeError("paged_attention_span: scales must be float32")
+        raise TypeError(f"{counter}: scales must be float32")
     tile = query_tile(S, hd, pg)
     if not tile:
-        raise ValueError(f"paged_attention_span: head_dim {hd} x page {pg} "
+        raise ValueError(f"{counter}: head_dim {hd} x page {pg} "
                          f"does not fit shared memory")
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
@@ -180,8 +193,8 @@ def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
             _build.ptr(st), _build.ptr(sl), window, _build.ptr(out), B, S,
             H, hd, pg, KV, pt.shape[1], tile,
             _build.dtype_code(q, "paged q"), _build.stream_of(q))
-        _build.check(err, "paged_attention_span_q launch")
-        _build.LAUNCHES["paged_attention_span_q"] += 1
+        _build.check(err, f"{counter}_q launch")
+        _build.LAUNCHES[f"{counter}_q"] += 1
         return out
     lib = _build.library("paged", "paged_span_launch", _ARGTYPES)
     err = lib.paged_span_launch(
@@ -190,8 +203,8 @@ def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
         _build.ptr(out), B, S, H, hd, pg, KV, pt.shape[1], tile,
         _build.dtype_code(q, "paged q"), _build.dtype_code(k_pages, "pages"),
         _build.stream_of(q))
-    _build.check(err, "paged_attention_span launch")
-    _build.LAUNCHES["paged_attention_span"] += 1
+    _build.check(err, f"{counter} launch")
+    _build.LAUNCHES[counter] += 1
     return out
 
 
@@ -206,14 +219,86 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     q: (B, H, hd); lengths: (B,) valid keys per row, current token included
     (the query sits at position ``lengths - 1``); scales as in
     :func:`paged_attention_span`.  Returns (B, H, hd)."""
+    return _one_query(paged_attention_span, q, k_pages, v_pages, page_table,
+                      lengths, window, k_scales=k_scales, v_scales=v_scales)
+
+
+def _one_query(span, q, k_pages, v_pages, page_table, lengths, window,
+               **kw) -> torch.Tensor:
+    """``span`` (a span-attention function) over one query a row, the
+    query at position ``lengths - 1``: (B, H, hd) -> (B, H, hd)."""
     B = q.shape[0]
     ones = torch.ones((B,), dtype=torch.int32, device=q.device)
-    out = paged_attention_span(q[:, None], k_pages, v_pages, page_table,
-                               lengths.to(torch.int32) - 1, ones, window,
-                               k_scales=k_scales, v_scales=v_scales)
+    out = span(q[:, None], k_pages, v_pages, page_table,
+               lengths.to(torch.int32) - 1, ones, window, **kw)
     return out[:, 0]
 
 
+# ---------------------------------------------------------------------------
+# B7: the span kernel under tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def _check_shard(q, k_pages, mesh, n_heads: int, n_kv_heads: int) -> None:
+    tp = mesh.model
+    H, KV = q.shape[2], k_pages.shape[2]
+    if H * tp != n_heads or KV * tp != n_kv_heads:
+        raise ValueError(
+            f"local heads {H}/KV {KV} x tp={tp} must be the model's "
+            f"{n_heads}/{n_kv_heads} heads: the pool is not split on the "
+            f"'model' axis")
+
+
+def paged_attention_span_sharded(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 start: torch.Tensor, span_len: torch.Tensor,
+                                 window: int, mesh, *, n_heads: int,
+                                 n_kv_heads: int,
+                                 k_scales: Optional[torch.Tensor] = None,
+                                 v_scales: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Span attention of one rank under tensor parallelism (B7; replaces
+    ``repro/kernels/paged.py:paged_attention_span_sharded``).
+
+    The reference ``shard_map``s the unchanged Pallas span kernel over the
+    ``"model"`` axis: each shard runs it on its ``H / tp`` query heads and
+    its ``KV / tp`` KV heads of the pool, with the whole page table, and
+    the outputs concatenate on the head axis with no collective (heads
+    never mix).  In the port every rank is a process that already holds
+    its slice, so B7 is the span kernel (``csrc/paged.cu``, float or int8
+    instance) launched on LOCAL shapes: q ``(B, S, H / tp, hd)``, pages
+    ``(P, page, KV / tp, hd)``, scales ``(P, KV / tp)``; the grid is
+    ``(B, H / tp, query tiles)``.  ``n_heads``/``n_kv_heads`` are the
+    model's global counts: shapes that are not this rank's ``1 / tp`` of
+    them raise, as the reference's divisibility check does.  Launches
+    count as ``paged_attention_span_sharded`` (``..._q`` for int8 pages);
+    a CPU tensor runs ``paged_attention_span_plain`` on the local
+    slices.  Returns this rank's heads, ``(B, S, H / tp, hd)``."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    _check_shard(q, k_pages, mesh, n_heads, n_kv_heads)
+    return _span(q, k_pages, v_pages, page_table, start, span_len, window,
+                 k_scales, v_scales, "paged_attention_span_sharded")
+
+
+def paged_attention_sharded(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, page_table: torch.Tensor,
+                            lengths: torch.Tensor, window: int, mesh, *,
+                            n_heads: int, n_kv_heads: int,
+                            k_scales: Optional[torch.Tensor] = None,
+                            v_scales: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Single-query decode under tensor parallelism (span of 1 per row),
+    :func:`paged_attention` over :func:`paged_attention_span_sharded`.
+    q: (B, H / tp, hd) -> (B, H / tp, hd)."""
+    return _one_query(paged_attention_span_sharded, q, k_pages, v_pages,
+                      page_table, lengths, window, mesh=mesh,
+                      n_heads=n_heads, n_kv_heads=n_kv_heads,
+                      k_scales=k_scales, v_scales=v_scales)
+
+
 __all__ = ["paged_attention", "paged_attention_span",
-           "paged_attention_span_plain", "smem_bytes", "query_tile",
+           "paged_attention_span_plain", "paged_attention_sharded",
+           "paged_attention_span_sharded", "smem_bytes", "query_tile",
            "span_fits", "GLOBAL_WINDOW", "QUERY_TILE"]

@@ -33,6 +33,7 @@ from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.core.quant import dequantize_kv_pages, quantize_kv_write
 from repro_torch.kernels.paged import GLOBAL_WINDOW
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.api import all_gather_cat, all_reduce_sum
 
 
 def _promote(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
@@ -165,12 +166,20 @@ def attention_apply(
     kv_input: Optional[torch.Tensor] = None,
     bidir: bool = False,
     backend: str = "einsum",
+    plan=None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Self-attention without a cache, or over a paged KV cache
     {"k_pages": (P,page,KV,hd), "v_pages": ...} addressed through
     ``page_table`` (B, max_pages), with S >= 1 new tokens per row written
     at ``pos[b] + arange(S)``.  ``span_len`` and ``write_start`` are as in
-    ``repro.models.layers.attention_apply``.  Returns (out, cache)."""
+    ``repro.models.layers.attention_apply``.  Returns (out, cache).
+
+    Under tensor parallelism (``plan``, a ``sharding.params.TPPlan``) the
+    weights are this rank's slices: where the plan splits heads,
+    ``wq``/``wk``/``wv`` are column-parallel over this rank's ``H / tp``
+    query heads (and ``KV / tp`` KV heads where the pool splits too), the
+    attention runs on those heads, and ``wo`` is row-parallel over them
+    (one all-reduce)."""
     if kv_input is not None:
         raise NotImplementedError("cross-attention is not ported yet")
     if cache is not None and "k_pages" not in cache:
@@ -191,6 +200,11 @@ def attention_apply(
         k = kvh[..., :kv * hd].reshape(B, S, kv, hd)
         v = kvh[..., kv * hd:].reshape(B, S, kv, hd)
     else:
+        if plan is not None and plan.heads:     # this rank's heads
+            h //= plan.tp
+        if plan is not None and plan.kv_heads:
+            kv //= plan.tp
+
         def proj(name, heads):
             y = linear_apply(params[name], x, backend=backend)
             return y.reshape(B, S, heads, hd)
@@ -213,7 +227,7 @@ def attention_apply(
     if cache is not None:
         out, new_cache = _paged_attend(
             q, k, v, cache, page_table, q_pos, cfg, window, dtype,
-            span_len=span_len, write_start=write_start)
+            span_len=span_len, write_start=write_start, plan=plan)
     else:
         if cfg.attn_chunk is not None and S > cfg.attn_chunk:
             raise NotImplementedError("chunked attention is not ported yet")
@@ -222,21 +236,41 @@ def attention_apply(
                               device=x.device)
         else:
             mask = causal_mask(S, S, 0, window, device=x.device)
-        out = _sdpa(q, k, v, mask, cfg.logit_softcap, dtype,
+        out = _sdpa(q, _local_kv(k, q, cfg, plan), _local_kv(v, q, cfg, plan),
+                    mask, cfg.logit_softcap, dtype,
                     fast_scores=cfg.fast_decode_scores)
 
     out = out.reshape(B, S, h * hd)
-    out = linear_apply(params["wo"], out, backend=backend)
+    row = plan is not None and plan.heads
+    out = linear_apply(params["wo"], out, backend=backend,
+                       reduce=plan.mesh if row else None)
     return out, new_cache
 
 
+def _local_kv(k: torch.Tensor, q: torch.Tensor, cfg: ModelConfig,
+              plan) -> torch.Tensor:
+    """k/v (..., T, KV, hd) for q's heads: unchanged where q's heads group
+    over them, and where a rank's query heads run over every KV head
+    (heads split, KV heads whole) the KV head of each of its query heads,
+    so the attention is one KV head per query head."""
+    if plan is None or not plan.heads or plan.kv_heads:
+        return k
+    H_loc = q.shape[2]
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = (plan.mesh.rank * H_loc
+           + torch.arange(H_loc, device=k.device)) // g
+    return k.index_select(k.dim() - 2, idx)
+
+
 def paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
-                     kv_dtype: Optional[str] = None, device=None) -> dict:
+                     kv_dtype: Optional[str] = None, device=None,
+                     n_kv_heads: Optional[int] = None) -> dict:
     """One layer's share of the paged KV pool: ``n_pages`` fixed-size pages
     stored at ``kv_dtype`` ("fp32" | "bf16" | "int8"; None keeps the model
     dtype).  "int8" adds one fp32 scale per (page, kv_head) for K and V
-    independently (``k_scales``/``v_scales``, (n_pages, KV))."""
-    kv, hd = cfg.n_kv_heads, cfg.hd
+    independently (``k_scales``/``v_scales``, (n_pages, KV)).
+    ``n_kv_heads``: the heads this rank holds (default: all of them)."""
+    kv, hd = n_kv_heads or cfg.n_kv_heads, cfg.hd
     if kv_dtype is None:
         page_dtype = dtype
     elif kv_dtype == "fp32":
@@ -258,7 +292,7 @@ def paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
 
 
 def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
-                  window, dtype, span_len=None, write_start=None):
+                  window, dtype, span_len=None, write_start=None, plan=None):
     """Write S new k/v rows through the page table (in place), attend over
     the gathered pages.
 
@@ -273,7 +307,12 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
     ``quantize_kv_write``; the stored-row rescale runs over the span's
     logical page range read from the page table (``ceil(S / page) + 1``
     entries a row), which covers every non-sink page the writes name, and
-    any extra page (a shared one, the sink) rescales by exactly 1.0."""
+    any extra page (a shared one, the sink) rescales by exactly 1.0.
+
+    Under tensor parallelism the pool holds this rank's KV heads when the
+    plan splits them: the span kernel then runs per rank as B7.  A pool
+    left whole at tp > 1 takes the dense gather for this rank's query
+    heads ("gqa_replicated")."""
     kp, vp = cache["k_pages"], cache["v_pages"]
     quantized = "k_scales" in cache
     ks = cache.get("k_scales")
@@ -307,22 +346,29 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
 
     from repro_torch.kernels.ops import paged_dispatch
 
-    decision = paged_dispatch(q.shape[3], pg, paged_kernel=cfg.paged_kernel,
-                              softcap=cfg.logit_softcap is not None)
+    decision = paged_dispatch(
+        q.shape[3], pg, paged_kernel=cfg.paged_kernel,
+        softcap=cfg.logit_softcap is not None,
+        pool_replicated=plan is not None and plan.pool_replicated)
     if decision == "kernel":
-        from repro_torch.kernels.paged import (paged_attention,
-                                               paged_attention_span)
+        from repro_torch.kernels import paged as span_k
 
         win = GLOBAL_WINDOW if window is None else int(window)
+        sc = dict(k_scales=ks, v_scales=vs)
+        if plan is not None and plan.kv_heads:  # B7: this rank's heads
+            sc.update(mesh=plan.mesh, n_heads=cfg.n_heads,
+                      n_kv_heads=cfg.n_kv_heads)
+            one, span = (span_k.paged_attention_sharded,
+                         span_k.paged_attention_span_sharded)
+        else:
+            one, span = span_k.paged_attention, span_k.paged_attention_span
         if S == 1 and span_len is None:
-            out = paged_attention(q[:, 0], kp, vp, page_table,
-                                  q_pos[:, 0] + 1, win, k_scales=ks,
-                                  v_scales=vs)
+            out = one(q[:, 0], kp, vp, page_table, q_pos[:, 0] + 1, win,
+                      **sc)
             return out[:, None], cache
         sp = (torch.full((B,), S, dtype=torch.int32, device=q.device)
               if span_len is None else span_len)
-        out = paged_attention_span(q, kp, vp, page_table, q_pos[:, 0], sp,
-                                   win, k_scales=ks, v_scales=vs)
+        out = span(q, kp, vp, page_table, q_pos[:, 0], sp, win, **sc)
         return out, cache
 
     # dense-gather fallback (the engine counts the reason); int8 pages are
@@ -339,7 +385,8 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
     if window is not None:
         valid &= (q_pos[..., None] - kj) < window
     mask = valid[:, None, None]  # (B,1,1,S,T)
-    out = _sdpa(q, kk, vv, mask, cfg.logit_softcap, dtype,
+    out = _sdpa(q, _local_kv(kk, q, cfg, plan), _local_kv(vv, q, cfg, plan),
+                mask, cfg.logit_softcap, dtype,
                 fast_scores=cfg.fast_decode_scores)
     return out, cache
 
@@ -365,7 +412,9 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              backend: str = "einsum") -> torch.Tensor:
+              backend: str = "einsum", plan=None) -> torch.Tensor:
+    """The FFN; where the plan splits the ``"mlp"`` group ``w1``/``wg``
+    are column-parallel and ``w2`` row-parallel (one all-reduce)."""
     g = None
     if "w1g" in params:  # fused up+gate projection ([up, gate] layout)
         hg = linear_apply(params["w1g"], x, backend=backend)
@@ -385,7 +434,9 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         h = torch.square(F.relu(h))
     else:
         raise ValueError(f"unknown ffn_type {cfg.ffn_type}")
-    return linear_apply(params["w2"], h, backend=backend)
+    row = plan is not None and plan.mlp
+    return linear_apply(params["w2"], h, backend=backend,
+                        reduce=plan.mesh if row else None)
 
 
 # ---------------------------------------------------------------------------
@@ -406,18 +457,39 @@ def embedding_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-          dtype) -> torch.Tensor:
+          dtype, plan=None) -> torch.Tensor:
+    """Token rows of the table.  A vocab-parallel table (this rank's
+    ``Vp / tp`` rows) looks up the tokens of its slice, zeros the others
+    and sums over the ranks: exact, since one rank holds each row."""
+    table = params["table"]
+    tok = tokens.long()
+    Vl = table.shape[0]
+    if plan is not None and plan.vocab:
+        local = tok - plan.mesh.rank * Vl
+        mine = (local >= 0) & (local < Vl)
+        rows = table[torch.clamp(local, 0, Vl - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        rows = all_reduce_sum(rows, plan.mesh)
+    else:
+        rows = table[tok]
     # gather, then cast: the same values as the reference's cast-then-gather
-    x = params["table"][tokens.long()].to(dtype)
+    x = rows.to(dtype)
     return x * math.sqrt(cfg.d_model) if cfg.norm_type == "rmsnorm" else x
 
 
-def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            plan=None) -> torch.Tensor:
+    """fp32 logits over the padded vocab.  Vocab-parallel weights give
+    this rank's vocab slice of the logits, gathered from every rank
+    (exact) before the padding mask."""
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["table"].to(x.dtype).t())
     else:
         logits = torch.matmul(x, params["unembed"].to(x.dtype))
-    logits = _softcap(logits.float(), cfg.final_softcap)
+    logits = logits.float()
+    if plan is not None and plan.vocab:
+        logits = all_gather_cat(logits, plan.mesh, dim=-1)
+    logits = _softcap(logits, cfg.final_softcap)
     if cfg.vocab_padded > cfg.vocab:  # mask padding slots (softmax-neutral)
         valid = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
         logits = torch.where(valid, logits, torch.full_like(logits, -1e30))

@@ -79,17 +79,21 @@ def attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def attn_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      window=None, cache: Optional[dict] = None, pos=None,
                      page_table=None, span_len=None, write_start=None,
-                     bidir: bool = False) -> torch.Tensor:
-    """One decoder block; a paged cache is written in place."""
+                     bidir: bool = False, plan=None) -> torch.Tensor:
+    """One decoder block; a paged cache is written in place.  Under a
+    tensor-parallel ``plan`` the block's activations are whole on every
+    rank between the sublayers (each ends in its row-parallel
+    all-reduce)."""
     h = L.norm_apply(p["ln1"], x, cfg.norm_type)
     a, _ = L.attention_apply(
         p["attn"], h, cfg, window=window,
         cache=cache["attn"] if cache else None, pos=pos,
         page_table=page_table, span_len=span_len, write_start=write_start,
-        bidir=bidir, backend=cfg.monarch.backend)
+        bidir=bidir, backend=cfg.monarch.backend, plan=plan)
     x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm_type)
-    return x + L.ffn_apply(p["ffn"], h, cfg, backend=cfg.monarch.backend)
+    return x + L.ffn_apply(p["ffn"], h, cfg, backend=cfg.monarch.backend,
+                           plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +115,8 @@ def decoder_stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                         cache: Optional[dict] = None, pos=None,
                         page_table=None, span_len=None, write_start=None,
-                        bidir: bool = False, train: bool = False):
+                        bidir: bool = False, train: bool = False,
+                        plan=None):
     """Loops the stacked layers; returns (x, cache, aux).  A paged cache is
     updated in place and returned as given."""
     _check_ported(cfg)
@@ -120,7 +125,8 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         c = layer_params(cache["layers"], i) if cache is not None else None
         x = attn_block_apply(
             p, x, cfg, window=win, cache=c, pos=pos, page_table=page_table,
-            span_len=span_len, write_start=write_start, bidir=bidir)
+            span_len=span_len, write_start=write_start, bidir=bidir,
+            plan=plan)
     aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
     return x, cache, aux
 
@@ -159,15 +165,19 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True):
 
 def init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int,
                     kv_dtype: Optional[str] = None,
-                    device: DeviceLike = None) -> dict:
+                    device: DeviceLike = None,
+                    n_kv_heads: Optional[int] = None) -> dict:
     """Paged KV pool for the whole stack, stacked on a leading layer axis:
     {"layers": {"attn": {"k_pages": (L, P, page, KV, hd), "v_pages": ...}}}.
     Page 0 is the sink page — free slots' page tables point at it.
     ``kv_dtype="int8"`` adds ``k_scales``/``v_scales`` (L, P, KV) fp32, one
-    scale per (page, kv_head), with the page axis at 1 like the pages."""
+    scale per (page, kv_head), with the page axis at 1 like the pages.
+    ``n_kv_heads``: the KV heads this rank holds (``serving.device_kv``;
+    default all)."""
     _check_ported(cfg)
     one = L.paged_cache_init(cfg, n_pages, page_size, _dtype(cfg),
-                             kv_dtype=kv_dtype, device=resolve_device(device))
+                             kv_dtype=kv_dtype, device=resolve_device(device),
+                             n_kv_heads=n_kv_heads)
     return {"layers": {"attn": {
         name: a.new_zeros((cfg.n_layers, *a.shape)) for name, a in one.items()
     }}}
@@ -193,7 +203,7 @@ def cow_copy_pages(pool: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
 def paged_mixed_step(params: dict, tokens: torch.Tensor, start: torch.Tensor,
                      span_len: torch.Tensor, page_table: torch.Tensor,
                      pool: dict, cfg: ModelConfig,
-                     write_start: Optional[torch.Tensor] = None):
+                     write_start: Optional[torch.Tensor] = None, plan=None):
     """ONE unified engine iteration: every row contributes a variable-length
     token span (a prefill chunk or a single decode token).
 
@@ -202,16 +212,23 @@ def paged_mixed_step(params: dict, tokens: torch.Tensor, start: torch.Tensor,
     positions write k/v through ``page_table`` into the pool, in place;
     padding positions and positions below ``write_start`` go to the sink
     page.  Returns (fp32 logits at each row's last real position (B, Vp),
-    the same pool)."""
+    the same pool).
+
+    Under tensor parallelism (``plan``, a ``sharding.params.TPPlan``)
+    ``params`` and ``pool`` are this rank's shards
+    (``sharding.params.shard_params``, ``serving.device_kv.DeviceKV``);
+    every rank calls this with the same host inputs, and the logits come
+    out whole and equal on every rank."""
     dtype = _dtype(cfg)
-    x = L.embed(params["embedding"], tokens, cfg, dtype)
+    x = L.embed(params["embedding"], tokens, cfg, dtype, plan=plan)
     x, pool, _ = decoder_stack_apply(
         params["decoder"], x, cfg, cache=pool, pos=start,
-        page_table=page_table, span_len=span_len, write_start=write_start)
+        page_table=page_table, span_len=span_len, write_start=write_start,
+        plan=plan)
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
     idx = (torch.clamp(span_len.long(), min=1) - 1)[:, None, None]
     xl = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))  # (B,1,d)
-    logits = L.unembed(params["embedding"], xl, cfg)
+    logits = L.unembed(params["embedding"], xl, cfg, plan=plan)
     return logits[:, 0], pool
 
 

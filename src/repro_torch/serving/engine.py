@@ -37,11 +37,38 @@ Per step the host uploads one packed int32 buffer (span tokens, starts,
 span lengths, flags, fork points, page tables) from pinned memory without
 blocking, so the upload never waits for the device.
 
-Not ported yet (they raise ``NotImplementedError``): ``mesh``,
-``fault_injector``, ``heartbeat``, snapshot/restore, and sampling at
-``temperature > 0`` (the reference draws with threefry keys; until those
-are ported bit-for-bit, the port serves greedy decoding only).  The legacy
-``ServeEngine`` is not ported either.
+**Tensor parallelism** (``mesh=``, a ``launch.mesh.Mesh`` with ``data =
+1`` and ``model = tp``): the engine is SPMD — every rank is a process
+that builds its own engine from the same full params and receives the
+same ``add_request``/``cancel`` calls; the mesh must have joined its world
+(``launch.mesh.make_host_mesh``), and its device is the engine's.  What
+splits is decided once at load (``sharding.params.tp_plan``), and the
+params are sliced by that plan (``shard_params``: Megatron pairs on the
+Monarch block axes, a vocab-parallel tied embedding).  The rank's pool
+holds its KV heads (``DeviceKV``; the page axis is never split, so host
+planning stays in logical pages, identical at every tp), a
+``pool_bytes`` budget is one
+rank's memory (``1 + pool_bytes // shard_page_bytes`` pages), and its
+attention runs the span kernel per rank (B7) or, for a pool left whole,
+the dense gather (counted ``dense_fallback_gqa_replicated``).  The
+logits come out whole on every rank, so every rank samples the same
+tokens.  The host loop is REPLICATED rather than planned on rank 0 and
+broadcast: its decisions depend on its inputs and on the clock alone
+(request ids, the trie's LRU stamps and the scheduler are deterministic
+counters), so rank 0 broadcasts one clock reading at the start of each
+step and every rank's deadlines, shedding and timestamps read that value
+until the next step (a request added between steps is stamped with the
+last step's reading; a ``cancel`` between steps is one of the calls
+every rank receives).  That costs one small host broadcast a step where
+planning on rank 0 would cost a packed-plan broadcast plus host code to
+replay it.  Under a mesh ``quantize``/``fuse_projections`` raise
+``NotImplementedError`` (not ported yet).
+
+Not ported yet (they raise ``NotImplementedError``): ``fault_injector``,
+``heartbeat``, snapshot/restore, and sampling at ``temperature > 0`` (the
+reference draws with threefry keys; until those are ported bit-for-bit,
+the port serves greedy decoding only).  The legacy ``ServeEngine`` is not
+ported either.
 """
 
 from __future__ import annotations
@@ -63,6 +90,8 @@ from repro_torch.core.quant import (BITS_BY_NAME, KV_DTYPE_BYTES,
 from repro_torch.models import transformer as T
 from repro_torch.models.decode_path import prepare_decode_params
 from repro_torch.models.config import ModelConfig
+from repro_torch.launch.mesh import rank_device
+from repro_torch.serving.device_kv import DeviceKV
 from repro_torch.serving.kv_pool import PagedKVPool, PoolOOM, SINK_PAGE
 from repro_torch.serving.metrics import (Calibration, EngineStats,
                                          LATENCY_MS_BUCKETS, MetricsRegistry,
@@ -72,6 +101,8 @@ from repro_torch.serving.request import (FinishReason, Request, RequestState,
 from repro_torch.serving.scheduler import (CostModel, IterationScheduler,
                                            SchedulerConfig, StepPlan)
 from repro_torch.serving.tracing import NULL_TRACER, ChromeTracer
+from repro_torch.sharding.api import broadcast_time
+from repro_torch.sharding.params import shard_params, tp_plan
 
 
 @dataclasses.dataclass
@@ -93,7 +124,7 @@ def _greedy_only(temperature: float) -> None:
 
 
 def _mixed_step(params, pool, cfg: ModelConfig, chunk_tok, tok_dev, use_dev,
-                start, span, pt, wstart, sample_mask):
+                start, span, pt, wstart, sample_mask, plan=None):
     """ONE unified engine iteration over the slot batch.
 
     ``chunk_tok`` (B, S) carries host-known span tokens (prefill chunks);
@@ -107,7 +138,7 @@ def _mixed_step(params, pool, cfg: ModelConfig, chunk_tok, tok_dev, use_dev,
     tokens = chunk_tok.clone()
     tokens[:, 0] = torch.where(use_dev, tok_dev, chunk_tok[:, 0])
     logits, _ = T.paged_mixed_step(params, tokens, start, span, pt, pool,
-                                   cfg, write_start=wstart)
+                                   cfg, write_start=wstart, plan=plan)
     sampled = torch.argmax(logits, dim=-1).to(torch.int32)
     return sampled, torch.where(sample_mask, sampled, tok_dev)
 
@@ -171,17 +202,35 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"quantize must be one of {sorted(BITS_BY_NAME)} or None, "
                 f"got {quantize!r}")
-        unported = {"mesh": mesh is not None,
-                    "fault_injector": fault_injector is not None,
+        unported = {"fault_injector": fault_injector is not None,
                     "heartbeat": heartbeat is not None}
         for name, used in unported.items():
             if used:
                 raise NotImplementedError(f"{name} is not ported yet")
+        if mesh is not None and (quantize or fuse_projections):
+            raise NotImplementedError(
+                "quantized or fused factors under tensor parallelism are "
+                "not ported yet")
         if use_paged_kernel:
             cfg = dataclasses.replace(cfg, paged_kernel=True)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        params = tree_to(params, self.device)
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.model
+        self.plan = None
+        if mesh is not None:
+            if mesh.group is None:
+                raise ValueError(
+                    "the mesh has no process group (a shape alone): join "
+                    "the world with launch.mesh.make_host_mesh")
+            if device is not None and rank_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+            self.plan = tp_plan(params, cfg, mesh)
+            params = shard_params(params, self.plan)
+        else:
+            self.device = resolve_device(device)
+            params = tree_to(params, self.device)
         if fuse_projections or quantize:
             params = prepare_decode_params(
                 params, cfg, fuse=fuse_projections,
@@ -199,21 +248,28 @@ class ContinuousBatchingEngine:
             "bf16" if cfg.dtype == "bfloat16" else "fp32")
         page_bytes = kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.hd,
                                    page_size, self.kv_dtype)
+        # what one rank stores of a logical page: a pool_bytes budget is
+        # one rank's memory, so a split pool holds ~kv_shard x the pages
+        kv_shard = 1 if self.plan is None else self.plan.kv_shard
+        shard_page_bytes = kv_page_bytes(
+            cfg.n_layers, cfg.n_kv_heads // kv_shard, cfg.hd, page_size,
+            self.kv_dtype)
         if n_pages is not None and pool_bytes is not None:
             raise ValueError(
                 "pass n_pages (a page count) OR pool_bytes (a byte budget "
                 "the kv_dtype converts into pages), not both")
         if n_pages is None:
             if pool_bytes is not None:
-                n_pages = 1 + max(1, pool_bytes // page_bytes)
+                n_pages = 1 + max(1, pool_bytes // shard_page_bytes)
             else:  # worst case: every slot at max_len, plus sink
                 n_pages = 1 + max_slots * self.max_pages_per_seq
         self.pool_host = PagedKVPool(n_pages, page_size,
                                      self.max_pages_per_seq,
                                      kv_dtype=self.kv_dtype,
-                                     page_bytes=page_bytes)
-        self.pool = T.init_paged_pool(cfg, n_pages, page_size,
-                                      kv_dtype=kv_dtype, device=self.device)
+                                     page_bytes=page_bytes,
+                                     kv_shard=kv_shard)
+        self.kv = DeviceKV(cfg, n_pages, page_size, kv_dtype=kv_dtype,
+                           plan=self.plan, device=self.device)
         self.prefix_sharing = prefix_sharing
         sc = scheduler_cfg or SchedulerConfig()
         sc = dataclasses.replace(sc, max_slots=max_slots,
@@ -269,10 +325,19 @@ class ContinuousBatchingEngine:
             self._g_cached = g("pool.cached_pages")
             self._g_held = g("pool.held_pages")
             self._g_evict = g("pool.cache_evictions")
-        self._clock = time.perf_counter
+        if mesh is None:
+            self._clock = time.perf_counter
+        else:  # rank 0's reading, refreshed at the start of every step
+            self._step_time = broadcast_time(time.perf_counter(), mesh)
+            self._clock = lambda: self._step_time
         # requests finished outside the step loop (``cancel()``) surface
         # through the next ``step()``'s return value
         self._overflow: list[Request] = []
+
+    @property
+    def pool(self) -> dict:
+        """This rank's device pool (owned by ``self.kv``)."""
+        return self.kv.pool
 
     # -- request intake ----------------------------------------------------
 
@@ -317,6 +382,8 @@ class ContinuousBatchingEngine:
         chunks), harvest the previous one, evict finished sequences.
         Returns requests finished this call."""
         self.step_idx += 1
+        if self.mesh is not None:
+            self._step_time = broadcast_time(time.perf_counter(), self.mesh)
         t0 = time.perf_counter()
         pred0 = self.stats["sim_latency_ns"]
         with self.tracer.span("step", step=self.step_idx):
@@ -662,7 +729,8 @@ class ContinuousBatchingEngine:
         pt = dev[o + 5 * B:].view(B, self.max_pages_per_seq)
         sampled, self._tok = _mixed_step(
             self.params, self.pool, self.cfg, dev[:o].view(B, Sb), self._tok,
-            cols[2].bool(), cols[0], cols[1], pt, cols[4], cols[3].bool())
+            cols[2].bool(), cols[0], cols[1], pt, cols[4], cols[3].bool(),
+            plan=self.plan)
         self._pending.append({"sampled": sampled, "slots": harvest,
                               "step": self.step_idx})
 
@@ -673,9 +741,11 @@ class ContinuousBatchingEngine:
         from repro_torch.kernels.ops import paged_dispatch
 
         cfg = self.cfg
-        return paged_dispatch(cfg.hd, self.page_size,
-                              paged_kernel=cfg.paged_kernel,
-                              softcap=cfg.logit_softcap is not None)
+        return paged_dispatch(
+            cfg.hd, self.page_size, paged_kernel=cfg.paged_kernel,
+            softcap=cfg.logit_softcap is not None,
+            pool_replicated=self.plan is not None
+            and self.plan.pool_replicated)
 
     def _harvest(self, entry: dict) -> list[Request]:
         step = entry.get("step", -1)

@@ -37,6 +37,9 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = _modules()
     assert "repro_torch.kernels.paged" in mods and len(mods) > 20
+    assert {"repro_torch.launch.mesh", "repro_torch.sharding.api",
+            "repro_torch.sharding.params",
+            "repro_torch.serving.device_kv"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -132,4 +135,6 @@ def test_cpu_wrappers_count_no_launches():
     ops.monarch_mm_q(x, qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
     assert launches() == {"monarch_fused": 0, "bdmm": 0,
                           "paged_attention_span": 0, "monarch_fused_q": 0,
-                          "bdmm_q": 0, "paged_attention_span_q": 0}
+                          "bdmm_q": 0, "paged_attention_span_q": 0,
+                          "paged_attention_span_sharded": 0,
+                          "paged_attention_span_sharded_q": 0}

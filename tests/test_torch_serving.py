@@ -272,9 +272,23 @@ def test_generate_compat_and_not_ported_options(model):
     assert tuple(out.shape) == (2, 3)
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], tserving.SamplingParams(temperature=0.7))
-    for kw in ({"mesh": object()}, {"fault_injector": object()},
-               {"heartbeat": object()}):
+    for kw in ({"fault_injector": object()}, {"heartbeat": object()}):
         with pytest.raises(NotImplementedError):
             tserving.ContinuousBatchingEngine(tc, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         eng.snapshot()
+
+
+@pytest.mark.parametrize("kw", [{"quantize": "int8"},
+                                {"fuse_projections": True},
+                                {"quantize": "int4",
+                                 "fuse_projections": True}])
+def test_mesh_with_quantized_or_fused_factors_is_not_ported(model, kw):
+    """Tensor parallelism serves float factors only: a mesh together with
+    quantized or fused factors raises before anything is sharded."""
+    from repro_torch.launch.mesh import Mesh
+
+    _, tc, _, tp = model
+    mesh = Mesh(model=2, rank=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tserving.ContinuousBatchingEngine(tc, tp, mesh=mesh, **kw)
