@@ -9,9 +9,16 @@ Phases, each printed as one JSON object per line:
   2. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes, with its time, the plain version's time, one
               PyTorch library call's time and the card's bound (each time
-              the median of 5 runs of 20 launches, with its spread); the
-              quantized kernels (int8/int4 factors, int8 pages) also
-              bitwise against the float kernels on the dequantized inputs
+              the median of 5 runs of 20 launches as the host issues them,
+              with its spread, and ``card_ms``: the same loops issued while
+              the card is held busy, the card's own time); the quantized
+              kernels (int8/int4 factors, int8 pages) also bitwise against
+              the float kernels on the dequantized inputs; each Monarch
+              line with its launch (blocks, tile, slab); a summary of one
+              decode layer at T = 8, with B1/B4 also at T = 512 and their
+              device time from torch.profiler; and B1's device time at
+              decode with its grid of one block a q-block against one cut
+              into slabs to put a block on every SM
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels; then
@@ -336,7 +343,8 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.bdmm import (bdmm, bdmm_plain, bdmm_q,
                                           bdmm_q_plain)
-    from repro_torch.kernels.monarch import (fused_fits, monarch_fused,
+    from repro_torch.kernels.monarch import (fused_fits, fused_geometry,
+                                             monarch_fused,
                                              monarch_fused_plain,
                                              monarch_fused_q,
                                              monarch_fused_q_plain)
@@ -365,37 +373,78 @@ def main() -> int:
           "per_source_seconds": per_source, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    def time_ms(fn, iters: int = 20, repeats: int = 5) -> tuple[float, float]:
-        """Median ms per launch over ``repeats`` timed loops of ``iters``
-        launches, and the spread (max - min) / median of those loops."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        runs = []
-        for _ in range(repeats):
+    sleep_cycles_per_ms: list = []
+
+    def hold_card(ms: float) -> None:
+        """Keep the card busy for about ``ms`` (``torch.cuda._sleep`` spins
+        for a number of clock cycles, calibrated once against CUDA events)."""
+        if not sleep_cycles_per_ms:
+            torch.cuda._sleep(1000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            for _ in range(iters):
-                fn()
+            torch.cuda._sleep(20_000_000)
             b.record()
-            b.synchronize()
-            runs.append(a.elapsed_time(b) / iters)
+            torch.cuda.synchronize()
+            sleep_cycles_per_ms.append(20_000_000 / a.elapsed_time(b))
+        torch.cuda._sleep(int(ms * sleep_cycles_per_ms[0]))
+
+    def time_ms(fn, iters: int = 20,
+                repeats: int = 5) -> tuple[float, float, float]:
+        """Median ms per call over ``repeats`` timed loops of ``iters``
+        calls, and the spread (max - min) / median of those loops: the
+        loops run as fast as the host issues them, so a call shorter than
+        its host time reads the host's rate.  Third, the card's own ms per
+        call: the median of the same loops issued while the card is held
+        busy for longer than the issue takes, so that the calls run back to
+        back on the card."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        runs, card, issue_s = [], [], 0.0
+        for held in (False, True):
+            for _ in range(repeats):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                if held:
+                    hold_card(min(1.5e3 * issue_s, 250.0))
+                a.record()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                issue_s = max(issue_s, time.perf_counter() - t0)
+                b.record()
+                b.synchronize()
+                (card if held else runs).append(a.elapsed_time(b) / iters)
         runs.sort()
+        card.sort()
         med = runs[len(runs) // 2]
-        return med, (runs[-1] - runs[0]) / med
+        return med, (runs[-1] - runs[0]) / med, card[len(card) // 2]
 
     def timings(**fns) -> dict:
-        """``<name>_ms`` and ``<name>_spread`` for each function."""
+        """``<name>_ms``, ``<name>_spread`` and ``<name>_card_ms`` for each
+        function."""
         out = {}
         for name, fn in fns.items():
-            out[f"{name}_ms"], out[f"{name}_spread"] = time_ms(fn)
+            (out[f"{name}_ms"], out[f"{name}_spread"],
+             out[f"{name}_card_ms"]) = time_ms(fn)
         return out
 
     def summary_entry(t: dict, bms: float, by: str) -> dict:
         return {"ms": t["kernel_ms"], "spread": t["kernel_spread"],
+                "card_ms": t["kernel_card_ms"],
                 "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                "library_card_ms": t["library_card_ms"],
                 "bound_ms": bms, "bound_by": by}
+
+    def launch_shape(L_shape, R_shape, x, w_bits) -> dict:
+        """The fused Monarch kernel's launch: blocks (``grid``) and what
+        each owns (kernels/monarch.py:fused_geometry)."""
+        g = fused_geometry(L_shape, R_shape, x.shape[0], x.element_size(),
+                           w_bits)
+        return {"grid": g.grid, "tile_t": g.tile_t, "q_group": g.q_group,
+                "slab": g.slab, "chunk": g.chunk,
+                "smem_bytes": g.smem_bytes}
 
     def close(out, ref, dtype_name: str) -> tuple[float, bool]:
         o, r = out.float(), ref.float()
@@ -444,7 +493,7 @@ def main() -> int:
                 emit({"phase": "kernel", "kernel": "monarch_fused",
                       "shape": name, "T": T_, "x_dtype": dn,
                       "factor_dtype": "float32", "max_abs_err": err,
-                      "tol": TOL[dn],
+                      "tol": TOL[dn], **launch_shape(L.shape, R.shape, x, 32),
                       **timings(kernel=lambda: monarch_fused(x, L, R),
                                 plain=lambda: monarch_fused_plain(x, L, R),
                                 library=lambda: torch.matmul(x, W)),
@@ -584,7 +633,7 @@ def main() -> int:
             emit({"phase": "kernel_dtypes", "kernel": "monarch_fused",
                   "shape": name, "T": 8, "x_dtype": dn,
                   "factor_dtype": "bfloat16", "max_abs_err": err,
-                  "tol": TOL[dn]})
+                  "tol": TOL[dn], **launch_shape(Lb.shape, Rb.shape, x, 16)})
             require(ok, f"monarch_fused bf16 factors {name} {dn}: {err}")
     wb = sf["L"].to(bf16)
     for xdt in (f32, bf16):
@@ -650,6 +699,8 @@ def main() -> int:
                     emit({"phase": "kernel", "kernel": "monarch_fused_q",
                           "shape": name, "bits": bits, "T": T_,
                           "x_dtype": dn, "max_abs_err": err, "tol": TOL[dn],
+                          **launch_shape(f["L"].shape, f["R"].shape, x,
+                                         bits),
                           "bitwise_vs_monarch_fused": same,
                           **timings(
                               kernel=lambda: monarch_fused_q(x, *qargs),
@@ -763,9 +814,10 @@ def main() -> int:
                         and dt == bf16):
                     paged_q_summary = line
 
-    # -- per-kernel summary: one layer of a bf16 decode step (T = 8) --------
+    # -- per-kernel summary: one layer of a bf16 decode step (T = 8), and
+    # for B1/B4 one layer of a prefill step (T = 512) ------------------------
     proj = [(1024, 1024)] * 4 + [(1024, 4096), (4096, 1024)]
-    T_dec = 8
+    T_dec, T_pre = 8, 512
 
     def layer_factors(nblocks, fused_qkv=False):
         fs = [init_monarch(gen, make_dims(din, dout, policy="paper",
@@ -773,9 +825,10 @@ def main() -> int:
               for din, dout in proj]
         return [fuse_linears(fs[:3])] + fs[3:] if fused_qkv else fs
 
-    def layer_bound(fs, staged: bool, weight_bytes: float = 4):
-        """bf16 activations in and out of each launch; factors at
-        ``weight_bytes`` a weight, plus fp32 block scales when
+    def layer_bound(fs, staged: bool, weight_bytes: float = 4,
+                    T_: int = T_dec):
+        """bf16 activations in and out of each launch for T_ tokens;
+        factors at ``weight_bytes`` a weight, plus fp32 block scales when
         quantized."""
         n_bytes = flops = 0
         for f in fs:
@@ -783,26 +836,48 @@ def main() -> int:
             s = f["R"].shape[1]
             n = f["L"].numel() + f["R"].numel()
             acts = k * p + q * s + (2 * k * q if staged else 0)
-            n_bytes += T_dec * acts * 2 + n * weight_bytes
+            n_bytes += T_ * acts * 2 + n * weight_bytes
             if weight_bytes < 4:
                 n_bytes += 4 * (k + q)
-            flops += 2 * T_dec * n
+            flops += 2 * T_ * n
         return bound_ms(n_bytes, flops, all_bf16=False)
 
     def run_layer(fn, fs, xs):
         return lambda: [fn(x, f) for x, f in zip(xs, fs)]
 
+    def device_ms(fn, n: int = 10) -> float:
+        """Device kernel time of one ``fn()`` from torch.profiler: what the
+        card spends, without the host's time to issue the launches."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum((getattr(e, "self_device_time_total", None)
+                    or e.self_cuda_time_total) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / n
+
     summary = {}
-    xs = [randn(T_dec, din, dtype=bf16) for din, _ in proj]
     fs = layer_factors(None)
     dense = [monarch_to_dense(f["L"], f["R"]).to(bf16) for f in fs]
-    t = timings(
-        kernel=run_layer(lambda x, f: monarch_fused(x, f["L"], f["R"]),
-                         fs, xs),
-        plain=run_layer(lambda x, f: monarch_fused_plain(x, f["L"], f["R"]),
-                        fs, xs),
-        library=run_layer(torch.matmul, dense, xs))
-    summary["monarch_fused"] = summary_entry(t, *layer_bound(fs, False))
+    for T_, key in ((T_pre, "monarch_fused_T512"), (T_dec, "monarch_fused")):
+        xs = [randn(T_, din, dtype=bf16) for din, _ in proj]
+        kern = run_layer(lambda x, f: monarch_fused(x, f["L"], f["R"]), fs,
+                         xs)
+        t = timings(
+            kernel=kern,
+            plain=run_layer(lambda x, f: monarch_fused_plain(
+                x, f["L"], f["R"]), fs, xs),
+            library=run_layer(torch.matmul, dense, xs))
+        summary[key] = {**summary_entry(t, *layer_bound(fs, False, T_=T_)),
+                        "device_ms": device_ms(kern), "T": T_,
+                        "grid": [fused_geometry(f["L"].shape, f["R"].shape,
+                                                T_, 2, 32).grid
+                                 for f in fs]}
 
     fs = layer_factors(128)
     require(not any(fused_fits(f["L"].shape, f["R"].shape) for f in fs),
@@ -839,11 +914,21 @@ def main() -> int:
     def qcall(fn):
         return lambda x, c: fn(x, c["Lq"], c["Ls"], c["Rq"], c["Rs"])
 
-    t = timings(kernel=run_layer(qcall(monarch_fused_q), qfs, xq),
-                plain=run_layer(qcall(monarch_fused_q_plain), qfs, xq),
-                library=run_layer(torch.matmul, dense, xq))
-    summary["monarch_fused_q"] = summary_entry(
-        t, *layer_bound(fs, False, weight_bytes=1))
+    for T_, key in ((T_pre, "monarch_fused_q_T512"),
+                    (T_dec, "monarch_fused_q")):
+        xqt = xq if T_ == T_dec else [randn(T_, f["L"].shape[0]
+                                            * f["L"].shape[2], dtype=bf16)
+                                      for f in fs]
+        kern = run_layer(qcall(monarch_fused_q), qfs, xqt)
+        t = timings(kernel=kern,
+                    plain=run_layer(qcall(monarch_fused_q_plain), qfs, xqt),
+                    library=run_layer(torch.matmul, dense, xqt))
+        summary[key] = {
+            **summary_entry(t, *layer_bound(fs, False, weight_bytes=1,
+                                            T_=T_)),
+            "device_ms": device_ms(kern), "T": T_,
+            "grid": [fused_geometry(f["L"].shape, f["R"].shape, T_, 2,
+                                    8).grid for f in fs]}
 
     fs = layer_factors(128, fused_qkv=True)
     qfs = [quantize_monarch(f, 8) for f in fs]
@@ -864,7 +949,45 @@ def main() -> int:
     emit({"phase": "kernel_summary",
           "what": "one bf16 decode layer at T=8 (B1/B4: its projections, "
                   "B4 int8 with fused QKV; B2/B5: the same at 128 blocks; "
-                  "B3/B6: one decode call)", "summary": summary})
+                  "B3/B6: one decode call); B1/B4 also one prefill layer "
+                  "at T=512 (*_T512); device_ms: torch.profiler's kernel "
+                  "time, grid: blocks per launch", "summary": summary})
+
+    # -- 2h. what spreading B1 over the SMs would buy at decode: its device
+    # time at T = 8 with fused_geometry's grid (one block a q-block) against
+    # the same kernel with R[i]'s rows cut into the fewest slabs that give
+    # at least one block per SM (132); both launches' arguments packed by
+    # kernels/monarch.py:_launch_args --------------------------------------
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import monarch as M
+
+    lib = _build.library("monarch", "monarch_fused_launch", M._ARGTYPES)
+    for name, (din, dout) in layer_shapes.items():
+        L, R = factors[name]["L"], factors[name]["R"]
+        k, q, p = L.shape
+        s = R.shape[1]
+        x = randn(T_dec, din, dtype=bf16)
+        line = {"phase": "monarch_geometry", "shape": name, "T": T_dec,
+                "x_dtype": "bfloat16"}
+        for variant, slab in (("plan", None),
+                              ("split_132", -(-s // -(-132 // q)))):
+            args = M._launch_args("monarch_fused", k, q, p, s, T_dec, bf16,
+                                  L.dtype, slab)
+            y = torch.empty(T_dec, dout, dtype=bf16, device=dev)
+
+            def launch(args=args, y=y):
+                _build.check(lib.monarch_fused_launch(
+                    x.data_ptr(), L.data_ptr(), R.data_ptr(), y.data_ptr(),
+                    args, _build.stream_of(x)), "monarch_geometry")
+
+            launch()
+            err, ok = close(y, monarch_fused_plain(x, L, R), "bfloat16")
+            require(ok, f"monarch_geometry {name} {variant}: err {err}")
+            line[variant] = {"grid": args[9], "slab": args[7],
+                             "smem_bytes": args[11],
+                             "device_ms": device_ms(launch, 20),
+                             "max_abs_err": err}
+        emit(line)
 
     # -- 3. serve gpt2-medium at full width ---------------------------------
     def serve(cfg, params, n_req, lo, hi, new_tokens, seed, **engine_kw):
@@ -1498,7 +1621,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": serve_counts[name],
             "max_abs_err": errs[name], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "card_ms": s["card_ms"],
+            "library_card_ms": s["library_card_ms"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     smi = subprocess.run(

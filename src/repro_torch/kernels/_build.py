@@ -132,8 +132,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+# PyTorch's raw accessor of the current stream's handle, resolved once: a
+# private name (CUDA builds of torch 2.x have it), so a torch without it
+# takes the public ``torch.cuda.current_stream`` instead, which returns the
+# same handle but builds a Stream object on every call -- more host time
+# than a decode-sized kernel takes on the card.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s card."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -141,10 +152,14 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:
+    return dtype_code_of(t.dtype, what)
+
+
+def dtype_code_of(dtype: torch.dtype, what: str) -> int:
     try:
-        return DTYPE_CODES[t.dtype]
+        return DTYPE_CODES[dtype]
     except KeyError:
-        raise TypeError(f"{what}: unsupported dtype {t.dtype} "
+        raise TypeError(f"{what}: unsupported dtype {dtype} "
                         f"(float32 or bfloat16)") from None
 
 

@@ -32,37 +32,64 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 // Block-diagonal factor readers: element (r, c) of diagonal block ``blk``
 // of a factor stored as (n_blocks, rows, cols), widened to fp32.  The
 // kernels are templated on the reader, so a float factor and a quantized
-// one run the same arithmetic after the value is staged in shared memory.
+// one run the same arithmetic after the value is widened.  ``row`` and
+// ``row_bytes`` give a stored row's address and size, so a kernel can copy
+// raw rows into shared memory and widen them there with ``at`` (the same
+// conversion ``operator()`` applies to device memory).
 template <typename WT>
 struct FloatBlocks {
   const WT* w;
   int rows, cols;
+  __host__ __device__ int row_bytes() const {
+    return cols * static_cast<int>(sizeof(WT));
+  }
+  __host__ __device__ const char* row(int blk, int r) const {
+    return reinterpret_cast<const char*>(w + ((size_t)blk * rows + r) * cols);
+  }
+  __device__ __forceinline__ float scale_of(int) const { return 1.f; }
+  // element c of a stored row; a float factor has no scale
+  __device__ static __forceinline__ float at(const char* row, int c, float) {
+    return to_f(reinterpret_cast<const WT*>(row)[c]);
+  }
   __device__ __forceinline__ float operator()(int blk, int r, int c) const {
-    return to_f(w[((size_t)blk * rows + r) * cols + c]);
+    return at(row(blk, r), c, 1.f);
   }
 };
 
 // int8 values (BITS 8), or int4 values packed two to a byte along ``cols``
 // (BITS 4: byte = hi << 4 | lo, lo the even index), times the block's fp32
 // scale: core.quant.dequantize_factor's single fp32 multiply.  __fmul_rn
-// keeps nvcc from contracting it into a later add, so the staged value is
+// keeps nvcc from contracting it into a later add, so the value is
 // bitwise what the plain version computes.
 template <int BITS>
 struct QuantBlocks {
   const int8_t* w;
   const float* scale;
   int rows, cols;
-  __device__ __forceinline__ float operator()(int blk, int r, int c) const {
-    const int stored = BITS == 4 ? cols >> 1 : cols;
-    const int8_t* row = w + ((size_t)blk * rows + r) * stored;
+  __host__ __device__ int row_bytes() const {
+    return BITS == 4 ? cols >> 1 : cols;
+  }
+  __host__ __device__ const char* row(int blk, int r) const {
+    return reinterpret_cast<const char*>(w) +
+           ((size_t)blk * rows + r) * row_bytes();
+  }
+  __device__ __forceinline__ float scale_of(int blk) const {
+    return scale[blk];
+  }
+  __device__ static __forceinline__ float at(const char* row, int c,
+                                             float sc) {
+    const int8_t* r8 = reinterpret_cast<const int8_t*>(row);
     int v;
     if (BITS == 4) {
-      const int b = row[c >> 1];  // the signed byte, sign-extended
+      const int b = r8[c >> 1];  // the signed byte, sign-extended
       v = (c & 1) ? (b >> 4) : (((b & 0xF) ^ 8) - 8);
     } else {
-      v = row[c];
+      v = r8[c];
     }
-    return __fmul_rn(static_cast<float>(v), scale[blk]);
+    return __fmul_rn(static_cast<float>(v), sc);
+  }
+  __device__ __forceinline__ float operator()(int blk, int r, int c) const {
+    return at(row(blk, r), c, scale[blk]);
   }
 };
 

@@ -8,8 +8,8 @@ memory (``kernels.monarch.fused_fits``), and otherwise the two ``bdmm``
 stages with the folded permutation in between as a strided read.
 ``monarch_mm_q`` is the same dispatch over int8 / packed-int4 factors with
 per-block scales (``core.quant``), through ``monarch_fused_q`` and
-``bdmm_q``; its fit is the same shared-memory rule on the UNPACKED shapes,
-since both kernels dequantize into the float kernels' fp32 tiles.
+``bdmm_q``; its fit is the same rule on the UNPACKED shapes, since each
+quantized kernel is its float twin's template with a dequantizing reader.
 
 ``paged_dispatch`` is THE kernel-vs-dense decision for one paged-attention
 span step, shared by ``models.layers._paged_attend`` and the engine's

@@ -121,6 +121,33 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert _build._lib_path("monarch") != _build._lib_path("paged")
 
 
+@pytest.mark.parametrize("raw", [True, False])
+def test_stream_of_reads_the_current_stream_with_or_without_the_raw_accessor(
+        monkeypatch, raw):
+    """The kernels' stream handle comes from torch's private raw accessor
+    where the installed torch has it (resolved once, at import), else from
+    the public ``torch.cuda.current_stream``; both name the card's current
+    stream, and neither path fails for want of the private name."""
+    class Card:
+        device = "cuda:3"
+
+        def get_device(self):
+            return 3
+
+    class Stream:
+        cuda_stream = 0x5eed
+
+    assert _build._RAW_STREAM is getattr(torch._C,
+                                         "_cuda_getCurrentRawStream", None)
+    asked = []
+    monkeypatch.setattr(_build, "_RAW_STREAM", (
+        lambda d: asked.append(d) or 0x5eed) if raw else None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: asked.append(d) or Stream())
+    assert _build.stream_of(Card()) == 0x5eed
+    assert asked == ([3] if raw else ["cuda:3"])
+
+
 def test_cpu_wrappers_count_no_launches():
     from repro_torch.kernels import launches, ops, reset_launches
 

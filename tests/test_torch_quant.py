@@ -38,12 +38,15 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels import launches, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bdmm import bdmm_plain, bdmm_q, bdmm_q_plain
-from repro_torch.kernels.monarch import (fused_fits, monarch_fused_plain,
+from repro_torch.kernels.monarch import (fused_fits, fused_geometry,
+                                         monarch_fused_plain,
                                          monarch_fused_q,
                                          monarch_fused_q_plain)
 from repro_torch.models import decode_path as TDP
 from repro_torch.models import fuse as TF
 from repro_torch.models import transformer as TT
+from test_torch_monarch import (SERVING_SHAPES, blockwise_monarch,
+                                small_ints)
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -420,3 +423,39 @@ def test_engine_dense_fallback_and_einsum_match_reference(quantize):
     assert stats["preemptions"] > 0
     assert stats["dense_fallbacks"] == stats["mixed_steps"]
     assert bits == {"int8": 8, "int4": 4}[quantize]
+
+
+def _unit_scale_factor(rng, shape, bits) -> torch.Tensor:
+    """Integers in [-3, 3] with one +-QMAX entry in every diagonal block,
+    so each block's scale is exactly 1.0 and the dequantized factor is
+    these integers: the split's sums stay exact in fp32."""
+    w = small_ints(rng, shape)
+    qmax = 127 if bits == 8 else 7
+    w[:, 0, 0] = torch.from_numpy(rng.choice([-qmax, qmax], shape[0]).astype(
+        np.float32))
+    return w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 8, 513])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("name", ["qkv_fused", "w1", "w2", "tp2_w2"])
+def test_blockwise_split_equals_monarch_fused_q_plain(name, bits, T, dtype):
+    """B4 launches B1's blocks (fused_geometry does not depend on the
+    factor width): following them over the dequantized factors is bitwise
+    monarch_fused_q_plain."""
+    L_shape, R_shape = SERVING_SHAPES[name]
+    k, q, p = L_shape
+    rng = np.random.default_rng(14)
+    qc = tq.quantize_monarch({"L": _unit_scale_factor(rng, L_shape, bits),
+                              "R": _unit_scale_factor(rng, R_shape, bits)},
+                             bits)
+    assert float(qc["Ls"].min()) == float(qc["Ls"].max()) == 1.0
+    deq = tq.dequantize_monarch(qc, k, p)
+    x = small_ints(rng, (T, k * p), 64).to(DTYPES[dtype][1])
+    want = monarch_fused_q_plain(x, qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
+    assert torch.equal(blockwise_monarch(x, deq["L"], deq["R"], T), want)
+    xb = x.element_size()
+    geo = fused_geometry(L_shape, R_shape, T, xb, bits)
+    assert geo._replace(smem_bytes=0) == fused_geometry(
+        L_shape, R_shape, T, xb, 32)._replace(smem_bytes=0)
