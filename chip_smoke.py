@@ -5,7 +5,8 @@
 
 Phases, each printed as one JSON object per line:
 
-  1. build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
+  1. build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``,
+              with each kernel's registers and spills from ptxas
   2. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes, with its time, the plain version's time, one
               PyTorch library call's time and the card's bound (each time
@@ -13,12 +14,19 @@ Phases, each printed as one JSON object per line:
               with its spread, and ``card_ms``: the same loops issued while
               the card is held busy, the card's own time); the quantized
               kernels (int8/int4 factors, int8 pages) also bitwise against
-              the float kernels on the dequantized inputs; each Monarch
+              the float kernels on the dequantized inputs (the span
+              kernel also at head dims 20 and 256, its other staging
+              paths); each Monarch
               line with its launch (blocks, tile, slab); a summary of one
               decode layer at T = 8, with B1/B4 also at T = 512 and their
               device time from torch.profiler; and B1's device time at
               decode with its grid of one block a q-block against one cut
-              into slabs to put a block on every SM
+              into slabs to put a block on every SM; each span-kernel line
+              with its launch (query tile, pages a split, splits, blocks;
+              kernels/paged.py:span_geometry) and two launches on the same
+              inputs torch.equal (the cross-block merge is deterministic);
+              and the span kernel's decode and prefill calls at other
+              pages a split (1, 2, 4, 8, unsplit)
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels; then
@@ -140,6 +148,18 @@ def bound_ms(n_bytes: float, flops: float,
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
+def _ptxas_report(log: str) -> list:
+    """Each kernel's registers and spills from ``nvcc -Xptxas -v``'s
+    output, as [mangled name, its spill line, its register line]."""
+    out = []
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            out.append([ln.split(" for ", 1)[1].strip()])
+        elif out and ("spill" in ln or "registers" in ln):
+            out[-1].append(ln.replace("ptxas info    :", "").strip())
+    return out
+
+
 def _window(eng, n_steps: int) -> dict:
     """Where ``n_steps`` engine steps' time goes: wall clock of
     synchronized steps, the device's kernel time from torch.profiler, and
@@ -209,6 +229,12 @@ def _profile_serve(cfg, params, **engine_kw) -> dict:
               for s in eng.running.values()):
         eng.step()
     decode = _window(eng, 8)
+    # the engine waits on the card once a step (the harvest of the sampled
+    # tokens); the span kernel's launch reads no device value on the host
+    for name, w in (("prefill", prefill), ("decode", decode)):
+        require(w["host_syncs_per_step"] == 1.0,
+                f"{name} window: {w['host_syncs_per_step']} host syncs a "
+                f"step, not 1")
     return {"prefill_T512": prefill, "decode_T8": decode}
 
 
@@ -348,10 +374,12 @@ def main() -> int:
                                              monarch_fused_plain,
                                              monarch_fused_q,
                                              monarch_fused_q_plain)
+    from repro_torch.kernels import paged as PG
     from repro_torch.kernels.paged import (GLOBAL_WINDOW,
                                            paged_attention_span,
                                            paged_attention_span_plain,
-                                           paged_attention_span_sharded)
+                                           paged_attention_span_sharded,
+                                           span_geometry)
     from repro_torch.launch.mesh import Mesh, run_ranks
     from repro_torch.models import transformer as T
     from repro_torch.models.decode_path import (decode_weight_bytes,
@@ -369,9 +397,12 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     per_source = build_all()
+    from repro_torch.kernels import _build
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          "ptxas": {n: _ptxas_report(log)
+                    for n, log in _build.BUILD_LOG.items()}})
 
     sleep_cycles_per_ms: list = []
 
@@ -571,6 +602,13 @@ def main() -> int:
                 n_pairs += qp - max(0, qp - win + 1) + 1
         return n_pages, n_pairs
 
+    def span_launch(S, heads) -> dict:
+        """The span kernel's launch for B rows of ``heads`` query heads
+        (kernels/paged.py:span_geometry; blocks over the whole grid)."""
+        g = span_geometry(S, hd, pg, MP)
+        return {"tile": g.tile, "pps": g.pps, "splits": g.n_splits,
+                "blocks": B * heads * g.blocks, "stages": g.stages}
+
     def sdpa_args(q, kp, vp, st, S, win):
         """Library yardstick: SDPA over pre-gathered contiguous KV."""
         T_all, kvh = MP * pg, kp.shape[2]
@@ -591,8 +629,9 @@ def main() -> int:
                 q = randn(B, S, H, hd, dtype=dt)
                 kp, vp = k32.to(dt), v32.to(dt)
                 args = (q, kp, vp, pt, st, sl, win)
-                err, ok = close(paged_attention_span(*args),
-                                paged_attention_span_plain(*args), dn)
+                out = paged_attention_span(*args)
+                err, ok = close(out, paged_attention_span_plain(*args), dn)
+                again = torch.equal(out, paged_attention_span(*args))
                 errs["paged_attention_span"] = max(
                     errs["paged_attention_span"], err)
                 n_pages, n_pairs = span_work(starts, spans, win)
@@ -606,7 +645,8 @@ def main() -> int:
                     "case": cname, "S": S, "window": win, "dtype": dn,
                     "B": B, "H": H, "KV": KV, "hd": hd, "page": pg,
                     "pages_read": n_pages, "max_abs_err": err,
-                    "tol": TOL[dn],
+                    "tol": TOL[dn], "launch": span_launch(S, H),
+                    "deterministic": again,
                     **timings(
                         kernel=lambda: paged_attention_span(*args),
                         plain=lambda: paged_attention_span_plain(*args),
@@ -614,7 +654,8 @@ def main() -> int:
                             qq, kk, vv, attn_mask=mask)),
                     "bound_ms": bms, "bound_by": by}
                 emit(line)
-                require(ok, f"paged {cname} window={win} {dn}: err {err}")
+                require(ok and again, f"paged {cname} window={win} {dn}: "
+                        f"err {err}, deterministic {again}")
                 if (cname == "decode" and win == GLOBAL_WINDOW
                         and dt == torch.bfloat16):
                     paged_summary = line
@@ -784,6 +825,7 @@ def main() -> int:
                     *args, ks, vs), dn)
                 same = torch.equal(out, paged_attention_span(
                     q, kd, vd, pt, st, sl, win))
+                again = torch.equal(out, paged_attention_span(*args, **sc))
                 errs["paged_attention_span_q"] = max(
                     errs["paged_attention_span_q"], err)
                 n_pages, n_pairs = span_work(starts, spans, win)
@@ -800,6 +842,7 @@ def main() -> int:
                     "page_dtype": "int8", "pages_read": n_pages,
                     "max_abs_err": err, "tol": TOL[dn],
                     "bitwise_vs_paged_attention_span": same,
+                    "launch": span_launch(S, H), "deterministic": again,
                     **timings(
                         kernel=lambda: paged_attention_span(*args, **sc),
                         plain=lambda: paged_attention_span_plain(
@@ -808,11 +851,53 @@ def main() -> int:
                             qq, kk, vv, attn_mask=mask)),
                     "bound_ms": bms, "bound_by": by}
                 emit(line)
-                require(ok and same, f"int8 paged {cname} window={win} {dn}: "
-                        f"err {err}, bitwise {same}")
+                require(ok and same and again,
+                        f"int8 paged {cname} window={win} {dn}: err {err}, "
+                        f"bitwise {same}, deterministic {again}")
                 if (cname == "decode" and win == GLOBAL_WINDOW
                         and dt == bf16):
                     paged_q_summary = line
+
+    # the span kernel's other staging paths, float and int8 pages: rows that
+    # are no 16-byte multiple (8- and 4-byte copies; hd 20 is zero-padded to
+    # 4 values a read), and pages whose two buffers do not fit (stages 1)
+    for hd_, pg_ in ((20, 16), (256, 64)):
+        B_, H_, MP_ = 3, 4, 6
+        pt_ = torch.from_numpy(prng.permutation(np.arange(1, 1 + B_ * MP_))
+                               .reshape(B_, MP_).astype(np.int32)).to(dev)
+        kk, vv = (randn(1 + B_ * MP_, pg_, 2, hd_) for _ in range(2))
+        (kq_, ks_), (vq_, vs_) = quantize_kv_page(kk), quantize_kv_page(vv)
+        kd_, vd_ = dequantize_kv_pages(kq_, ks_), dequantize_kv_pages(vq_, vs_)
+        for S_, starts, spans in ((1, [0, 5, MP_ * pg_ - 1], [1, 1, 1]),
+                                  (9, [0, 3, 20], [9, 4, 0])):
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            sl = torch.tensor(spans, dtype=torch.int32, device=dev)
+            for dt in (f32, bf16):
+                dn = dn_of(dt)
+                q = randn(B_, S_, H_, hd_, dtype=dt)
+                args = (q, kk.to(dt), vv.to(dt), pt_, st, sl, 7)
+                err, ok = close(paged_attention_span(*args),
+                                paged_attention_span_plain(*args), dn)
+                qargs = (q, kq_, vq_, pt_, st, sl, 7)
+                out = paged_attention_span(*qargs, k_scales=ks_,
+                                           v_scales=vs_)
+                errq, okq = close(out, paged_attention_span_plain(
+                    *qargs, ks_, vs_), dn)
+                same = torch.equal(out, paged_attention_span(
+                    q, kd_, vd_, pt_, st, sl, 7))
+                errs["paged_attention_span"] = max(
+                    errs["paged_attention_span"], err)
+                errs["paged_attention_span_q"] = max(
+                    errs["paged_attention_span_q"], errq)
+                emit({"phase": "kernel_shapes",
+                      "kernel": "paged_attention_span", "hd": hd_,
+                      "page": pg_, "S": S_, "window": 7, "dtype": dn,
+                      "stages": span_geometry(S_, hd_, pg_, MP_).stages,
+                      "max_abs_err": err, "max_abs_err_int8": errq,
+                      "bitwise_int8_vs_float": same, "tol": TOL[dn]})
+                require(ok and okq and same,
+                        f"paged hd={hd_} page={pg_} S={S_} {dn}: err {err}, "
+                        f"int8 err {errq}, bitwise {same}")
 
     # -- per-kernel summary: one layer of a bf16 decode step (T = 8), and
     # for B1/B4 one layer of a prefill step (T = 512) ------------------------
@@ -958,7 +1043,6 @@ def main() -> int:
     # the same kernel with R[i]'s rows cut into the fewest slabs that give
     # at least one block per SM (132); both launches' arguments packed by
     # kernels/monarch.py:_launch_args --------------------------------------
-    from repro_torch.kernels import _build
     from repro_torch.kernels import monarch as M
 
     lib = _build.library("monarch", "monarch_fused_launch", M._ARGTYPES)
@@ -987,6 +1071,36 @@ def main() -> int:
                              "smem_bytes": args[11],
                              "device_ms": device_ms(launch, 20),
                              "max_abs_err": err}
+        emit(line)
+
+    # -- 2i. how far to split the span kernel's page axis: its time at the
+    # decode call set (bf16, global window) with 1, 2, 4, 8 pages a split
+    # and unsplit (one split of all MP pages), and at the two prefill call
+    # sets with 4 to 32 pages a split and unsplit --------------------------
+    for cname, choices in (("decode", (1, 2, 4, 8, MP)),
+                           ("prefill", (4, 8, 16, MP)),
+                           ("prefill512", (8, 16, 32, MP))):
+        S, starts, spans = cases[cname]
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        sl = torch.tensor(spans, dtype=torch.int32, device=dev)
+        q = randn(B, S, H, hd, dtype=bf16)
+        args = (q, k32.to(bf16), v32.to(bf16), pt, st, sl, GLOBAL_WINDOW)
+        ref = paged_attention_span_plain(*args)
+        line = {"phase": "span_geometry", "case": cname, "S": S,
+                "dtype": "bfloat16", "planned_pps": span_geometry(
+                    S, hd, pg, MP).pps}
+        for pps in choices:
+            def call(pps=pps):
+                return PG._span(*args, None, None, "paged_attention_span",
+                                pps)
+            err, ok = close(call(), ref, "bfloat16")
+            require(ok, f"span_geometry {cname} pps={pps}: err {err}")
+            g = span_geometry(S, hd, pg, MP, pps)
+            t = timings(kernel=call)
+            line["unsplit" if pps == MP else f"pps_{pps}"] = {
+                "splits": g.n_splits, "blocks": B * H * g.blocks,
+                "ms": t["kernel_ms"], "card_ms": t["kernel_card_ms"],
+                "max_abs_err": err}
         emit(line)
 
     # -- 3. serve gpt2-medium at full width ---------------------------------
@@ -1438,7 +1552,7 @@ def main() -> int:
                                                      {}))
                         whole = paged_attention_span(q, kp, vp, pt, st, sl,
                                                      win, **sc)
-                        outs, err, ok = [], 0.0, True
+                        outs, err, ok, again = [], 0.0, True, True
                         for r in range(tp):
                             ql, kl, vl, scl = head_slices(tp, r, q, kp, vp,
                                                           sc)
@@ -1450,6 +1564,10 @@ def main() -> int:
                                 ql, kl, vl, pt, st, sl, win,
                                 scl.get("k_scales"), scl.get("v_scales")),
                                 dn)
+                            again = again and torch.equal(
+                                o, paged_attention_span_sharded(
+                                    ql, kl, vl, pt, st, sl, win, mesh_r,
+                                    n_heads=H, n_kv_heads=KV, **scl))
                             outs.append(o)
                             err, ok = max(err, e), ok and okr
                         same = torch.equal(torch.cat(outs, dim=2), whole)
@@ -1461,7 +1579,9 @@ def main() -> int:
                                 "local_heads": H // tp,
                                 "local_kv_heads": KV // tp,
                                 "max_abs_err": err, "tol": TOL[dn],
-                                "bitwise_concat_vs_unsharded": same}
+                                "bitwise_concat_vs_unsharded": same,
+                                "launch": span_launch(S, H // tp),
+                                "deterministic": again}
                         if win == GLOBAL_WINDOW and cname != "prefill512":
                             # rank 0's launch, at its local shapes
                             ql, kl, vl, scl = head_slices(tp, 0, q, kp, vp,
@@ -1501,9 +1621,10 @@ def main() -> int:
                                     and dt == bf16):
                                 summary[name] = summary_entry(line, bms, by)
                         emit(line)
-                        require(ok and same, f"{name} tp={tp} {cname} "
-                                f"window={win} {dn}: err {err}, concat "
-                                f"bitwise {same}")
+                        require(ok and same and again,
+                                f"{name} tp={tp} {cname} window={win} {dn}: "
+                                f"err {err}, concat bitwise {same}, "
+                                f"deterministic {again}")
 
     # 5b. the tp = 1 runs on the card the ranks are held to: phase 4's fp32
     # traces and phase 3's bf16 serve, and the traces again with fp32

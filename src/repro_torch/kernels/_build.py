@@ -29,8 +29,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("monarch", "bdmm", "paged")
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")  # where the toolkit puts it
+# -Xptxas -v: each kernel's registers and spills, kept in BUILD_LOG
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes understood by the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +44,8 @@ LAUNCHES = {"monarch_fused": 0, "bdmm": 0, "paged_attention_span": 0,
             "paged_attention_span_sharded_q": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# source -> the compiler's output of its last build in this process
+BUILD_LOG: dict[str, str] = {}
 
 
 def reset_launches() -> None:
@@ -100,6 +103,7 @@ def build_all(names: Iterable[str] = SOURCES) -> dict[str, float]:
     for n, (proc, tmp, path) in procs.items():
         out, _ = proc.communicate()
         seconds[n] = time.perf_counter() - t0
+        BUILD_LOG[n] = out.decode()
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {n}.cu:\n{out.decode()}")
             continue
@@ -164,4 +168,4 @@ def dtype_code_of(dtype: torch.dtype, what: str) -> int:
 
 
 __all__ = ["build_all", "library", "launches", "reset_launches", "LAUNCHES",
-           "SOURCES", "build_dir", "check"]
+           "SOURCES", "BUILD_LOG", "build_dir", "check"]

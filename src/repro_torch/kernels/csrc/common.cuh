@@ -93,6 +93,81 @@ struct QuantBlocks {
   }
 };
 
+__host__ __device__ inline size_t r16(size_t b) {
+  return (b + 15) & ~static_cast<size_t>(15);
+}
+
+// lanes that share one dot product of length n: a power of two, at most
+// 32 and n, and as many as a block of NT threads allows for ``items`` dots
+template <int NT>
+__device__ __forceinline__ int lanes_for(int items, int n) {
+  int g = 1;
+  while (g < 32 && 2 * g <= n && 2 * g * items <= NT) g *= 2;
+  return g;
+}
+
+// sum over each aligned group of g lanes; every lane of the warp calls it
+__device__ __forceinline__ float group_sum(float v, int g) {
+  for (int o = g >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// widest copy unit (16, 8 or 4 bytes; 1: plain loads) that every address
+// and size OR-ed into m is a multiple of
+__device__ __forceinline__ int vec_of(size_t m) {
+  return m % 16 == 0 ? 16 : m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : 1;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(N)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// copy ``nseg`` rows of ``bytes`` each, row g from src(g) to
+// dst + g * dst_stride, with the NT threads of a block; asynchronous
+// unless vec is 1
+template <int NT, typename Src>
+__device__ __forceinline__ void stage(char* dst, int dst_stride, int nseg,
+                                      int bytes, int vec, Src src) {
+  if (vec == 1) {
+    for (int e = threadIdx.x; e < nseg * bytes; e += NT) {
+      const int g = e / bytes, b = e - g * bytes;
+      dst[(size_t)g * dst_stride + b] = src(g)[b];
+    }
+    return;
+  }
+  const int per = bytes / vec;
+  for (int e = threadIdx.x; e < nseg * per; e += NT) {
+    const int g = e / per, o = (e - g * per) * vec;
+    char* d = dst + (size_t)g * dst_stride + o;
+    const char* s = src(g) + o;
+    if (vec == 16)
+      cp_async<16>(d, s);
+    else if (vec == 8)
+      cp_async<8>(d, s);
+    else
+      cp_async<4>(d, s);
+  }
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory, then return
 // the launch error (0 on success) so the Python wrapper can raise on it.
 template <typename K>

@@ -91,10 +91,6 @@ constexpr int CC = 4;     // output columns of a stage-2 micro-tile
 constexpr int QG = 4;     // most q-blocks a block owns (MAX_Q_GROUP)
 constexpr int PAD = 16;   // bytes after every staged row
 
-__host__ __device__ inline size_t r16(size_t b) {
-  return (b + 15) & ~static_cast<size_t>(15);
-}
-
 // Shared memory of one block; kernels/monarch.py:_smem_bytes is the same
 // formula.  xbuf: (bT, jc) x rows of p values; lbuf: jc rows of
 // L[j, i0:i0+qg, :] (contiguous in L); two of each when there is more than
@@ -114,74 +110,6 @@ __host__ __device__ inline Layout layout(int k, int p, int bT, int qg,
   o.r = r16((size_t)qg * slab * (rrow + PAD));
   o.total = o.nbuf * o.buf + o.u + o.r;
   return o;
-}
-
-// lanes that share one dot product of length n: a power of two, at most
-// 32 and n, and as many as the block's threads allow for ``items`` dots
-__device__ __forceinline__ int lanes_for(int items, int n) {
-  int g = 1;
-  while (g < 32 && 2 * g <= n && 2 * g * items <= NTH) g *= 2;
-  return g;
-}
-
-__device__ __forceinline__ float group_sum(float v, int g) {
-  for (int o = g >> 1; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// widest copy unit (16, 8 or 4 bytes; 1: plain loads) that every address
-// and size OR-ed into m is a multiple of
-__device__ __forceinline__ int vec_of(size_t m) {
-  return m % 16 == 0 ? 16 : m % 8 == 0 ? 8 : m % 4 == 0 ? 4 : 1;
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(N)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// copy ``nseg`` rows of ``bytes`` each, row g from src(g) to
-// dst + g * dst_stride; asynchronous unless vec is 1
-template <typename Src>
-__device__ __forceinline__ void stage(char* dst, int dst_stride, int nseg,
-                                      int bytes, int vec, Src src) {
-  if (vec == 1) {
-    for (int e = threadIdx.x; e < nseg * bytes; e += NTH) {
-      const int g = e / bytes, b = e - g * bytes;
-      dst[(size_t)g * dst_stride + b] = src(g)[b];
-    }
-    return;
-  }
-  const int per = bytes / vec;
-  for (int e = threadIdx.x; e < nseg * per; e += NTH) {
-    const int g = e / per, o = (e - g * per) * vec;
-    char* d = dst + (size_t)g * dst_stride + o;
-    const char* s = src(g) + o;
-    if (vec == 16)
-      cp_async<16>(d, s);
-    else if (vec == 8)
-      cp_async<8>(d, s);
-    else
-      cp_async<4>(d, s);
-  }
 }
 
 template <typename XT, typename W>
@@ -223,15 +151,15 @@ __global__ void __launch_bounds__(NTH)
   auto issue = [&](int c, int bi) {
     char* xs = smem + bi * lay.buf;
     const int j0 = c * jc;
-    stage(xs, seg_x, nt * jc, p * xb, vx, [&](int g) {
+    stage<NTH>(xs, seg_x, nt * jc, p * xb, vx, [&](int g) {
       const int t = g / jc, jj = g - t * jc;
       return xg + ((size_t)(t0 + t) * din + (size_t)(j0 + jj) * p) * xb;
     });
-    stage(xs + lay.xbuf, seg_l, jc, qg * lrow, vl,
+    stage<NTH>(xs + lay.xbuf, seg_l, jc, qg * lrow, vl,
           [&](int g) { return Lw.row(j0 + g, i0); });
   };
   issue(0, 0);
-  stage(rs, seg_r, qg * ns, rrow, vr, [&](int g) {
+  stage<NTH>(rs, seg_r, qg * ns, rrow, vr, [&](int g) {
     const int ii = g / ns;
     return Rw.row(i0 + ii, c0 + g - ii * ns);
   });
@@ -242,7 +170,7 @@ __global__ void __launch_bounds__(NTH)
   // all qg q-blocks): each x value feeds qg FMAs, each L value TT
   const int ntb = (bT + TT - 1) / TT;
   const int items1 = jc * ntb;
-  const int g1 = lanes_for(items1, p);
+  const int g1 = lanes_for<NTH>(items1, p);
   const int lane1 = threadIdx.x % g1, grp1 = threadIdx.x / g1;
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks) {
@@ -312,7 +240,7 @@ __global__ void __launch_bounds__(NTH)
   // micro-tile is (one q-block, TT tokens, CC slab rows)
   const int ncb = (slab + CC - 1) / CC;
   const int items2 = qg * ntb * ncb;
-  const int g2 = lanes_for(items2, k);
+  const int g2 = lanes_for<NTH>(items2, k);
   const int lane2 = threadIdx.x % g2, grp2 = threadIdx.x / g2;
   for (int base = 0; base < items2; base += NTH / g2) {
     const int item = base + grp2;

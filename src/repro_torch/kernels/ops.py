@@ -17,15 +17,15 @@ dispatch counters.  Its fit rule is the span kernel's shared memory on
 Hopper, which the span does not enter (the kernel tiles its queries); the
 reject reason keeps the reference's name ``"vmem"`` so the engine counters
 stay comparable across packages.  Int8 pages need no argument of their
-own: the int8 instance of the span kernel dequantizes into the same fp32
-tile and reads its two scales into registers, so its shared memory is the
-float kernel's.  Under tensor parallelism the kernel runs per rank on its
-own heads (B7) when the pool's KV heads are split as many ways as the
+own: the rule sizes the kernel's shared memory for fp32 pages, and the
+int8 instance stages a quarter of those bytes in the same layout.  Under
+tensor parallelism the kernel runs per rank on its own heads (B7) when
+the pool's KV heads are split as many ways as the
 model; a pool left whole on every rank of a ``tp`` > 1 axis
 (``pool_replicated``, ``sharding.params.TPPlan.pool_replicated``) takes
 the dense gather with the reason ``"gqa_replicated"``, as in the
 reference.  The per-rank head count does not enter the fit: the kernel
-runs one block per query head, whatever their number.
+runs its blocks per query head, whatever their number.
 
 Which path a call takes depends only on shapes: a CUDA tensor launches the
 kernel, a CPU tensor runs the kernel's plain version.
@@ -99,8 +99,9 @@ def paged_dispatch(head_dim: int, page_size: int, *,
     KV heads are not split ``tp`` ways (``pool_replicated``), where only
     the dense gather runs on each rank's query heads; ``"vmem"`` — not
     even a one-row query tile fits shared memory.  It takes no
-    ``quantized`` argument: the int8-page instance of the kernel uses the
-    float instance's shared memory, so one rule decides both."""
+    ``quantized`` argument: the int8-page instance of the kernel needs no
+    more shared memory than the float instance, so one rule decides
+    both."""
     if not paged_kernel:
         return "disabled"
     if softcap:

@@ -36,7 +36,8 @@ from repro_torch.kernels import launches
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.paged import (GLOBAL_WINDOW, paged_attention,
                                        paged_attention_span,
-                                       paged_attention_span_plain)
+                                       paged_attention_span_plain,
+                                       paged_attention_span_split_plain)
 from repro_torch.models import transformer as TT
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -201,6 +202,34 @@ def test_span_int8_pages_match_reference_kernel(case, window, q_dtype):
             jnp.asarray(q).astype(jdt).astype(jnp.float32), jnp.asarray(kq), jnp.asarray(vq),
             jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(pt),
             jnp.asarray(st), jnp.asarray(sl), window)), **F32)
+
+
+@pytest.mark.parametrize("pps", [None, 1, 2])
+@pytest.mark.parametrize("window", [GLOBAL_WINDOW, 3])
+@pytest.mark.parametrize("case", sorted(SPANS))
+def test_split_merge_int8_pages_match_reference_kernel(case, window, pps):
+    """The span kernel's split and merge (its plain mirror) over int8 pages
+    against the reference's int8 Pallas kernel; the mirror dequantizes as
+    the kernel's page reader does, so on dequantized pages it is the float
+    mirror exactly."""
+    S, start, span = SPANS[case]
+    rng, (kq, ks, vq, vs, pt) = _quantized_fixture(seed=13)
+    q = rng.standard_normal((3, S, 4, 16)).astype(np.float32)
+    st, sl = np.asarray(start, np.int32), np.asarray(span, np.int32)
+    want = jpaged_span(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+                       jnp.asarray(pt), jnp.asarray(st), jnp.asarray(sl),
+                       jnp.asarray(window, jnp.int32),
+                       k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    targs = (_t(q), _t(kq), _t(vq), _t(pt), _t(st), _t(sl))
+    got = paged_attention_span_split_plain(*targs, window, _t(ks), _t(vs),
+                                           pps=pps)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    for b in range(3):
+        assert (got.numpy()[b, span[b]:] == 0).all()
+    deq = (tq.dequantize_kv_pages(_t(kq), _t(ks)),
+           tq.dequantize_kv_pages(_t(vq), _t(vs)))
+    assert torch.equal(got, paged_attention_span_split_plain(
+        targs[0], *deq, *targs[3:], window, pps=pps))
 
 
 def test_single_query_int8_pages_match_reference_and_reject_half_scales():
