@@ -3,12 +3,24 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
+    PYTHONPATH=src python3 chip_smoke.py --calls   # B2/B5 alone (below)
+
 Phases, each printed as one JSON object per line:
 
   1. build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``,
               with each kernel's registers and spills from ptxas
-  2. kernels  each kernel against its plain PyTorch version at the serving
-              path's shapes, with its time, the plain version's time, one
+  2. kernels  B2/B5 (bdmm, bdmm_q) at their call sets first: both stages
+              of a 128-block decode layer, of the 4096 x 4096 128-block
+              pair and of nemotron-4-15b's and codeqwen1.5-7b's staged
+              feed-forward pairs, bf16 x, fp32 / int8 / int4 weights, T = 8
+              and 512, each line with both stages' launches
+              (kernels/bdmm.py:bdmm_geometry), two launches torch.equal and
+              B5 torch.equal to B2 on the dequantized blocks (``--calls``
+              stops after these and the 128-block serves' profiled windows,
+              so that an older checkout can be timed in the same call);
+              then each kernel against its plain PyTorch version at the
+              serving path's shapes, with its time, the plain version's
+              time, one
               PyTorch library call's time and the card's bound (each time
               the median of 5 runs of 20 launches as the host issues them,
               with its spread, and ``card_ms``: the same loops issued while
@@ -25,8 +37,10 @@ Phases, each printed as one JSON object per line:
               with its launch (query tile, pages a split, splits, blocks;
               kernels/paged.py:span_geometry) and two launches on the same
               inputs torch.equal (the cross-block merge is deterministic);
-              and the span kernel's decode and prefill calls at other
-              pages a split (1, 2, 4, 8, unsplit)
+              the span kernel's decode and prefill calls at other pages a
+              split (1, 2, 4, 8, unsplit); B2/B5 at ragged and odd shapes
+              through both instances; and B2's call sets at other lanes a
+              row, diagonal blocks a tile and instance (bdmm_geometry)
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels; then
@@ -35,7 +49,9 @@ Phases, each printed as one JSON object per line:
               then the compressed decode path (fused QKV, int8 factors,
               int8 KV pages) through the quantized kernels: quantization on
               the card against the CPU, a profiled serve, an int4 serve and
-              a 128-block int8 serve through the staged bdmm_q branch
+              a 128-block int8 serve through the staged bdmm_q branch; both
+              128-block serves with a profiled window (B2/B5 device ms a
+              step)
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits, then greedy tokens of
               three engine traces (plain; a tiny pool that preempts;
@@ -77,6 +93,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 without tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17-19
 # card vs CPU, fp32 logits of one full-width mixed step: both sides sum in
 # fp32 in other orders over 24 layers.  Readings on an H100 SXM are 5.5e-7
@@ -127,6 +144,20 @@ SOURCES = {
 }
 # ranks of the tensor-parallel phase: processes that share the one card
 TP = 2
+# B2/B5's call sets: the projections (din, dout) whose factors take the
+# staged branch, and their blocks (None: make_dims' paper policy)
+BDMM_CALL_SETS = {
+    # (a) one gpt2-medium decode layer at 128 blocks (B5: QKV fused)
+    "a_gpt2_layer_nb128": ([(1024, 1024)] * 4 + [(1024, 4096),
+                                                 (4096, 1024)], 128),
+    # (b) the 4096 x 4096 pair at 128 blocks
+    "b_4096x4096_nb128": ([(4096, 4096)], 128),
+    # (c), (d) nemotron-4-15b's FFN (d_model 6144, d_ff 24576)
+    "c_nemotron_w1": ([(6144, 24576)], None),
+    "d_nemotron_w2": ([(24576, 6144)], None),
+    # (e) codeqwen1.5-7b's FFN down projection (d_ff 13440, d_model 4096)
+    "e_codeqwen_w2": ([(13440, 4096)], None),
+}
 
 
 def emit(obj) -> None:
@@ -138,12 +169,14 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def bound_ms(n_bytes: float, flops: float,
-             all_bf16: bool) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float, all_bf16: bool,
+             peak: float = 0.0) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate, or operations
     over the peak rate of their type (bf16 where every operand is bf16,
-    else fp32 outside the tensor cores), whichever is larger."""
-    peak = BF16_FLOPS_PER_S if all_bf16 else FP32_FLOPS_PER_S
+    else fp32 outside the tensor cores; ``peak`` where the caller names
+    the rate), whichever is larger."""
+    if not peak:
+        peak = BF16_FLOPS_PER_S if all_bf16 else FP32_FLOPS_PER_S
     tb, tf = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
@@ -160,10 +193,12 @@ def _ptxas_report(log: str) -> list:
     return out
 
 
-def _window(eng, n_steps: int) -> dict:
+def _window(eng, n_steps: int, watch: tuple = ()) -> dict:
     """Where ``n_steps`` engine steps' time goes: wall clock of
-    synchronized steps, the device's kernel time from torch.profiler, and
-    the host syncs PyTorch's sync debug mode detects."""
+    synchronized steps, the device's kernel time from torch.profiler
+    (with the ms and launches a step of the kernels whose names hold each
+    string of ``watch``), and the host syncs PyTorch's sync debug mode
+    detects."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -186,9 +221,12 @@ def _window(eng, n_steps: int) -> dict:
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
             dt = e.self_cuda_time_total
-        rows.append((dt / 1e3 / n_steps, e.key[:70], e.count))
+        rows.append((dt / 1e3 / n_steps, e.key, e.count))
     rows.sort(reverse=True)
     device = sum(r[0] for r in rows)
+    watched = {w: [sum(r[0] for r in rows if w in r[1]),
+                   sum(r[2] for r in rows if w in r[1]) / n_steps]
+               for w in watch}
     # calls that make the host wait for the device (PyTorch's sync debug
     # mode warns on each one it detects); the engine means one a step, the
     # harvest's read of the sampled tokens
@@ -207,13 +245,15 @@ def _window(eng, n_steps: int) -> dict:
             "device_ms_per_step": device,
             "device_busy_share": device / (wall * 1e3),
             "host_syncs_per_step": syncs / n_steps,
+            "watched_ms_launches_per_step": watched,
             "top_kernels_ms_per_step": [
-                [name, ms, n / n_steps] for ms, name, n in rows[:8]]}
+                [name[:70], ms, n / n_steps] for ms, name, n in rows[:8]]}
 
 
-def _profile_serve(cfg, params, **engine_kw) -> dict:
+def _profile_serve(cfg, params, watch: tuple = (), **engine_kw) -> dict:
     """A fresh batch of 8 x 256-token prompts: one prefill step, then 8
-    decode steps once every request is decoding."""
+    decode steps once every request is decoding (``watch`` as in
+    :func:`_window`)."""
     import numpy as np
 
     from repro_torch.serving import ContinuousBatchingEngine, SamplingParams
@@ -224,11 +264,11 @@ def _profile_serve(cfg, params, **engine_kw) -> dict:
     for _ in range(8):
         eng.add_request(rng.integers(0, cfg.vocab, 256),
                         SamplingParams(max_new_tokens=64))
-    prefill = _window(eng, 1)
+    prefill = _window(eng, 1, watch)
     while any(s.request.state.value != "running"
               for s in eng.running.values()):
         eng.step()
-    decode = _window(eng, 8)
+    decode = _window(eng, 8, watch)
     # the engine waits on the card once a step (the harvest of the sampled
     # tokens); the span kernel's launch reads no device value on the host
     for name, w in (("prefill", prefill), ("decode", decode)):
@@ -361,10 +401,11 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.monarch import (init_monarch, make_dims,
                                           monarch_to_dense)
-    from repro_torch.core.quant import (dequantize_kv_pages,
+    from repro_torch.core.quant import (dequantize_factor,
+                                        dequantize_kv_pages,
                                         dequantize_monarch, kv_page_bytes,
-                                        quantize_kv_page, quantize_kv_write,
-                                        quantize_monarch)
+                                        quantize_factor, quantize_kv_page,
+                                        quantize_kv_write, quantize_monarch)
     from repro_torch.kernels import build_all, launches, reset_launches
     from repro_torch.kernels import ops
     from repro_torch.kernels.bdmm import (bdmm, bdmm_plain, bdmm_q,
@@ -495,6 +536,145 @@ def main() -> int:
     def dn_of(dt) -> str:
         return str(dt).split(".")[1]
 
+    # -- 2b0. B2/B5 at their call sets (BDMM_CALL_SETS): both stages of each
+    # projection as ops.monarch_mm issues them (stage 2 reads stage 1's
+    # output through its transposed view), bf16 x, fp32 factors (B2) or
+    # int8 / int4 (B5), at T = 8 and 512; each line with both stages'
+    # launches (kernels/bdmm.py:bdmm_geometry), two launches torch.equal,
+    # and B5 torch.equal to B2 on the dequantized blocks --------------------
+    from repro_torch.kernels import bdmm as BD
+
+    # ``--calls`` also times an older checkout, whose bdmm module has no
+    # geometry: its lines carry none
+    geometry_of = getattr(BD, "bdmm_geometry", None)
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(16)
+
+    def stage_calls(f: dict, bits: int = 0) -> list:
+        """One projection's two stages: for each, its blocks, the bytes of
+        its weights, the kernel, its plain version, B2 on the dequantized
+        blocks (B5 only) and the library yardstick (one batched bf16
+        torch.matmul on the dequantized blocks)."""
+        out = []
+        for w in ("L", "R"):
+            if bits:
+                wq, sc = f[w + "q"], f[w + "s"]
+                wf = dequantize_factor(wq, sc, unpacked_dim=wq.shape[2] * (
+                    2 if bits == 4 else 1))
+                call = {"w_bytes": wq.numel() + 4 * sc.numel(),
+                        "kernel": lambda x, wq=wq, sc=sc: bdmm_q(x, wq, sc),
+                        "plain": lambda x, wq=wq, sc=sc: bdmm_q_plain(
+                            x, wq, sc),
+                        "twin": lambda x, wf=wf: bdmm(x, wf)}
+            else:
+                wf = f[w]
+                call = {"w_bytes": 4 * wf.numel(),
+                        "kernel": lambda x, wf=wf: bdmm(x, wf),
+                        "plain": lambda x, wf=wf: bdmm_plain(x, wf)}
+            wt = wf.to(torch.bfloat16).transpose(1, 2)
+            out.append({**call, "blocks": tuple(wf.shape),
+                        "library": lambda x, wt=wt: torch.matmul(
+                            x.transpose(0, 1), wt).transpose(0, 1)})
+        return out
+
+    def run_stages(calls: list, xs: list, which: str) -> list:
+        """Every projection's stage 1 on its x, stage 2 on stage 1's
+        output through the transposed view; the outputs."""
+        outs = []
+        for x, (s1, s2) in zip(xs, calls):
+            u = s1[which](x.view(x.shape[0], s1["blocks"][0], -1))
+            outs += [u, s2[which](u.transpose(1, 2))]
+        return outs
+
+    def stage_geometry(T_, blocks, bits, contiguous) -> dict:
+        k, q, p = blocks
+        g = geometry_of(T_, k, q, p, 2, bits, contiguous)
+        return {"blocks": [k, q, p], **g._asdict()}
+
+    def bdmm_call_set(name: str, T_: int, bits: int, fs: list) -> dict:
+        """One kernel line: the call set's stages at T_ tokens, bf16 x;
+        bits 32: B2 on fs, else B5 on fs quantized to ``bits``."""
+        calls = [stage_calls(quantize_monarch(f, bits), bits) if bits < 32
+                 else stage_calls(f) for f in fs]
+        xs = [torch.randn(T_, f["L"].shape[0] * f["L"].shape[2],
+                          generator=gb, device=dev).to(torch.bfloat16)
+              for f in fs]
+        err, ok, again, same = 0.0, True, True, True
+        n_bytes = flops = 0
+        geos = {}
+        for x, (s1, s2) in zip(xs, calls):
+            x3 = x.view(T_, s1["blocks"][0], -1)
+            u = s1["kernel"](x3)
+            ut = u.transpose(1, 2)
+            y = s2["kernel"](ut)
+            for s_, xin, out in ((s1, x3, u), (s2, ut, y)):
+                e, o = close(out, s_["plain"](xin), "bfloat16")
+                err, ok = max(err, e), ok and o
+                again = again and torch.equal(out, s_["kernel"](xin))
+                if "twin" in s_:
+                    same = same and torch.equal(out, s_["twin"](xin))
+                k, q, p = s_["blocks"]
+                n_bytes += 2 * T_ * k * (p + q) + s_["w_bytes"]
+                flops += 2 * T_ * k * q * p
+                if geometry_of is not None:
+                    geos.setdefault(f"{k}x{q}x{p}", stage_geometry(
+                        T_, s_["blocks"], bits, xin.stride(2) == 1))
+        # decode sums with fp32 FMA; prefill with TF32 tensor cores, two
+        # products a multiply-add (bf16 x has no small half)
+        tc = T_ > 16
+        peak = TF32_FLOPS_PER_S / 2 if tc else FP32_FLOPS_PER_S
+        bms, by = bound_ms(n_bytes, flops, False, peak)
+        kind = "bdmm" if bits == 32 else "bdmm_q"
+        line = {"phase": "kernel", "kernel": kind, "call_set": name,
+                "T": T_, "x_dtype": "bfloat16",
+                "weights": {32: "float32", 8: "int8", 4: "int4"}[bits],
+                "launches": 2 * len(fs), "max_abs_err": err,
+                "tol": TOL["bfloat16"], "deterministic": again,
+                **({"bitwise_vs_bdmm": same} if bits < 32 else {}),
+                "launch": geos or None,
+                **timings(kernel=lambda: run_stages(calls, xs, "kernel"),
+                          plain=lambda: run_stages(calls, xs, "plain"),
+                          library=lambda: run_stages(calls, xs, "library")),
+                "bound_ms": bms, "bound_by": by,
+                "bound_rate": "tf32 tensor cores / 2 products" if tc else
+                "fp32 fma"}
+        emit(line)
+        errs[kind] = max(errs[kind], err)
+        require(ok and again and same,
+                f"{kind} {name} T={T_} int{bits}: err {err}, deterministic "
+                f"{again}, bitwise {same}")
+        return line
+
+    bdmm_lines: dict = {}
+    bdmm_sets: dict = {}
+    for name, (proj, nblocks) in BDMM_CALL_SETS.items():
+        fs = [init_monarch(gb, make_dims(din, dout, policy="paper",
+                                         nblocks=nblocks), device=dev)
+              for din, dout in proj]
+        require(not any(fused_fits(f["L"].shape, f["R"].shape) for f in fs),
+                f"{name} must take the staged branch")
+        # B5 on the quantized decode path's layer: QKV fused
+        fq = [fuse_linears(fs[:3])] + fs[3:] if len(fs) == 6 else fs
+        bdmm_sets[name] = (fs, fq)
+        for T_ in (8, 512):
+            for bits in (32, 8, 4):
+                bdmm_lines[name, T_, bits] = bdmm_call_set(
+                    name, T_, bits, fs if bits == 32 else fq)
+    if "--calls" in sys.argv[1:]:
+        # and the 128-block serves' profiled windows, as in phase 3
+        cfg_st = dataclasses.replace(get_config("gpt2-medium"),
+                                     monarch=dataclasses.replace(
+                                         get_config("gpt2-medium").monarch,
+                                         backend="pallas", nblocks=128))
+        params = T.init_params(cfg_st, seed=0, device=dev)
+        qopts = dict(quantize="int8", fuse_projections=True, kv_dtype="int8")
+        emit({"phase": "serve_profile_staged",
+              **_profile_serve(cfg_st, params, watch=("bdmm",))})
+        emit({"phase": "serve_profile_staged_quantized", "options": qopts,
+              **_profile_serve(cfg_st, params, watch=("bdmm",), **qopts)})
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        return 0
+
     # -- 2a. monarch_fused at gpt2-medium's three Monarch shapes -------------
     gpt2 = get_config("gpt2-medium")
     layer_shapes = {"attn_1024x1024": (1024, 1024),
@@ -541,7 +721,9 @@ def main() -> int:
             dn = dn_of(xdt)
             x3 = randn(T_, sd.k, sd.p, dtype=xdt)
             w = sf["L"]
-            err, ok = close(bdmm(x3, w), bdmm_plain(x3, w), dn)
+            out = bdmm(x3, w)
+            err, ok = close(out, bdmm_plain(x3, w), dn)
+            again = torch.equal(out, bdmm(x3, w))
             errs["bdmm"] = max(errs["bdmm"], err)
             xt = x3.transpose(0, 1)
             wt = w.to(xdt).transpose(1, 2)
@@ -550,12 +732,13 @@ def main() -> int:
                 2 * T_ * w.numel(), all_bf16=False)
             emit({"phase": "kernel", "kernel": "bdmm", "shape": "direct",
                   "x": [T_, sd.k, sd.p], "w": list(w.shape), "x_dtype": dn,
-                  "max_abs_err": err, "tol": TOL[dn],
+                  "max_abs_err": err, "tol": TOL[dn], "deterministic": again,
                   **timings(kernel=lambda: bdmm(x3, w),
                             plain=lambda: bdmm_plain(x3, w),
                             library=lambda: torch.matmul(xt, wt)),
                   "bound_ms": bms, "bound_by": by})
-            require(ok, f"bdmm direct T={T_} {dn}: err {err}")
+            require(ok and again, f"bdmm direct T={T_} {dn}: err {err}, "
+                    f"deterministic {again}")
             x = randn(T_, sd.din, dtype=xdt)
             before = launches()
             y = ops.monarch_mm(x, sf["L"], sf["R"])
@@ -762,6 +945,7 @@ def main() -> int:
                 y = bdmm_q(x3, qc["Lq"], qc["Ls"])
                 err, ok = close(y, bdmm_q_plain(x3, qc["Lq"], qc["Ls"]), dn)
                 same = torch.equal(y, bdmm(x3, deq["L"]))
+                again = torch.equal(y, bdmm_q(x3, qc["Lq"], qc["Ls"]))
                 errs["bdmm_q"] = max(errs["bdmm_q"], err)
                 xt = x3.transpose(0, 1)
                 wt = deq["L"].to(xdt).transpose(1, 2)
@@ -773,14 +957,15 @@ def main() -> int:
                       "shape": "direct", "bits": bits,
                       "x": [T_, sd.k, sd.p], "w": list(qc["Lq"].shape),
                       "x_dtype": dn, "max_abs_err": err, "tol": TOL[dn],
-                      "bitwise_vs_bdmm": same,
+                      "bitwise_vs_bdmm": same, "deterministic": again,
                       **timings(
                           kernel=lambda: bdmm_q(x3, qc["Lq"], qc["Ls"]),
                           plain=lambda: bdmm_q_plain(x3, qc["Lq"], qc["Ls"]),
                           library=lambda: torch.matmul(xt, wt)),
                       "bound_ms": bms, "bound_by": by})
-                require(ok and same, f"bdmm_q int{bits} T={T_} {dn}: err "
-                        f"{err}, bitwise {same}")
+                require(ok and same and again, f"bdmm_q int{bits} T={T_} "
+                        f"{dn}: err {err}, bitwise {same}, deterministic "
+                        f"{again}")
                 x = randn(T_, sd.din, dtype=xdt)
                 qargs = (qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
                 before = launches()
@@ -798,6 +983,58 @@ def main() -> int:
                       "max_abs_err": err, "tol": TOL[dn]})
                 require(ok, f"staged monarch_mm_q int{bits} T={T_} {dn}: "
                         f"err {err}")
+
+    # B2/B5's ragged edges and other paths: T, p and q off every tile, p
+    # with no 4-value unit (single-value loads; byte copies of int4 rows of
+    # 5 bytes), a block too large for shared memory whole, small blocks
+    # packed to a block; x with p
+    # contiguous and through a transposed view (blocks contiguous, as in
+    # stage 2); each shape through both instances where the decode one
+    # takes it (bdmm_geometry's instance= override), fp32 and bf16 x
+    for T_, k, q, p in ((1, 128, 8, 128), (5, 8, 48, 16), (16, 16, 8, 8),
+                        (17, 4, 32, 32), (100, 8, 48, 16), (5, 5, 11, 7),
+                        (33, 5, 11, 7), (7, 3, 5, 10), (40, 3, 5, 10),
+                        (3, 2, 1024, 256), (40, 2, 1024, 256),
+                        (9, 24, 40, 120)):
+        w = torch.randn(k, q, p, generator=gb, device=dev) / p ** 0.5
+        qws = {b: quantize_factor(w, b)
+               for b in ((8, 4) if p % 2 == 0 else (8,))}
+        for xdt in (f32, bf16):
+            dn = dn_of(xdt)
+            base = torch.randn(T_, p, k, generator=gb, device=dev).to(xdt)
+            for layout, x3 in (("p_contiguous", base.transpose(1, 2)
+                                .contiguous()), ("transposed",
+                                                 base.transpose(1, 2))):
+                for inst in ("decode", "prefill") if T_ <= 16 else \
+                        ("prefill",):
+                    out = BD._launch("bdmm", x3, w, None, w.dtype, q,
+                                     instance=inst)
+                    err, ok = close(out, bdmm_plain(x3, w), dn)
+                    again = torch.equal(out, BD._launch(
+                        "bdmm", x3, w, None, w.dtype, q, instance=inst))
+                    same, errq = True, 0.0
+                    for bits, (wq, sc) in qws.items():
+                        deq = dequantize_factor(wq, sc, unpacked_dim=p)
+                        oq = BD._launch("bdmm_q", x3, wq, sc, bits, q,
+                                        instance=inst)
+                        e, o = close(oq, bdmm_q_plain(x3, wq, sc), dn)
+                        errq, ok = max(errq, e), ok and o
+                        same = same and torch.equal(oq, BD._launch(
+                            "bdmm", x3, deq, None, deq.dtype, q,
+                            instance=inst))
+                    torch.cuda.synchronize()
+                    errs["bdmm"] = max(errs["bdmm"], err)
+                    errs["bdmm_q"] = max(errs["bdmm_q"], errq)
+                    emit({"phase": "kernel_shapes", "kernel": "bdmm",
+                          "T": T_, "blocks": [k, q, p], "x_dtype": dn,
+                          "x_layout": layout, "instance": inst,
+                          "max_abs_err": err, "max_abs_err_q": errq,
+                          "deterministic": again, "bitwise_q_vs_float": same,
+                          "tol": TOL[dn]})
+                    require(ok and again and same,
+                            f"bdmm T={T_} ({k}, {q}, {p}) {dn} {layout} "
+                            f"{inst}: err {err} / {errq}, deterministic "
+                            f"{again}, bitwise {same}")
 
     # -- 2g. the span kernel over int8 pages ---------------------------------
     kq, ks = quantize_kv_page(k32)
@@ -964,27 +1201,23 @@ def main() -> int:
                                                 T_, 2, 32).grid
                                  for f in fs]}
 
-    fs = layer_factors(128)
-    require(not any(fused_fits(f["L"].shape, f["R"].shape) for f in fs),
-            "every nblocks=128 projection must take the staged branch")
-    fs_bf16 = [{k: v.to(bf16) for k, v in f.items()} for f in fs]
+    # B2/B5: their call sets of phase 2b0, bf16 x; the decode layer (a)
+    # at T = 8 (B5 int8, QKV fused) as before, at T = 512, and the FFN
+    # call sets (c)-(e) at both
+    def bdmm_entry(name, T_, bits) -> dict:
+        line = bdmm_lines[name, T_, bits]
+        return {**summary_entry(line, line["bound_ms"], line["bound_by"]),
+                "T": T_, "launches": line["launches"]}
 
-    def staged(fn, factors, xs, weights=("L", "R")):
-        def run():
-            for x, f in zip(xs, factors):
-                k = f["Ls" if "Ls" in f else "L"].shape[0]
-                u = fn(x.view(T_dec, k, -1), f, weights[0])
-                fn(u.transpose(1, 2), f, weights[1])
-        return run
-
-    def bmm(x, f, w):  # one batched torch.matmul per stage
-        return torch.matmul(x.transpose(0, 1), f[w].transpose(1, 2)
-                            ).transpose(0, 1)
-
-    t = timings(kernel=staged(lambda x, f, w: bdmm(x, f[w]), fs, xs),
-                plain=staged(lambda x, f, w: bdmm_plain(x, f[w]), fs, xs),
-                library=staged(bmm, fs_bf16, xs))
-    summary["bdmm"] = summary_entry(t, *layer_bound(fs, True))
+    a_set = "a_gpt2_layer_nb128"
+    summary["bdmm"] = bdmm_entry(a_set, T_dec, 32)
+    summary["bdmm_T512"] = bdmm_entry(a_set, T_pre, 32)
+    summary["bdmm_q"] = bdmm_entry(a_set, T_dec, 8)
+    summary["bdmm_q_T512"] = bdmm_entry(a_set, T_pre, 8)
+    summary["bdmm_ffn"] = {
+        f"{name} T={T_}": bdmm_entry(name, T_, 32)
+        for name in ("c_nemotron_w1", "d_nemotron_w2", "e_codeqwen_w2")
+        for T_ in (T_dec, T_pre)}
     summary["paged_attention_span"] = summary_entry(
         paged_summary, paged_summary["bound_ms"], paged_summary["bound_by"])
 
@@ -1015,28 +1248,16 @@ def main() -> int:
             "grid": [fused_geometry(f["L"].shape, f["R"].shape, T_, 2,
                                     8).grid for f in fs]}
 
-    fs = layer_factors(128, fused_qkv=True)
-    qfs = [quantize_monarch(f, 8) for f in fs]
-    deqs_bf16 = [{k: v.to(bf16) for k, v in dequantize_monarch(
-        c, f["L"].shape[0], f["L"].shape[2]).items()}
-        for c, f in zip(qfs, fs)]
-    t = timings(
-        kernel=staged(lambda x, c, w: bdmm_q(x, c[w + "q"], c[w + "s"]),
-                      qfs, xq),
-        plain=staged(lambda x, c, w: bdmm_q_plain(x, c[w + "q"], c[w + "s"]),
-                     qfs, xq),
-        library=staged(bmm, deqs_bf16, xq))
-    summary["bdmm_q"] = summary_entry(
-        t, *layer_bound(fs, True, weight_bytes=1))
     summary["paged_attention_span_q"] = summary_entry(
         paged_q_summary, paged_q_summary["bound_ms"],
         paged_q_summary["bound_by"])
     emit({"phase": "kernel_summary",
           "what": "one bf16 decode layer at T=8 (B1/B4: its projections, "
                   "B4 int8 with fused QKV; B2/B5: the same at 128 blocks; "
-                  "B3/B6: one decode call); B1/B4 also one prefill layer "
-                  "at T=512 (*_T512); device_ms: torch.profiler's kernel "
-                  "time, grid: blocks per launch", "summary": summary})
+                  "B3/B6: one decode call); B1/B2/B4/B5 also one prefill "
+                  "layer at T=512 (*_T512); bdmm_ffn: B2 at the FFN call "
+                  "sets; device_ms: torch.profiler's kernel time, grid: "
+                  "blocks per launch", "summary": summary})
 
     # -- 2h. what spreading B1 over the SMs would buy at decode: its device
     # time at T = 8 with fused_geometry's grid (one block a q-block) against
@@ -1101,6 +1322,73 @@ def main() -> int:
                 "splits": g.n_splits, "blocks": B * H * g.blocks,
                 "ms": t["kernel_ms"], "card_ms": t["kernel_card_ms"],
                 "max_abs_err": err}
+        emit(line)
+
+    # -- 2j. B2's launches compared, bf16 x, fp32 factors, both stages as
+    # ops.monarch_mm issues them: at decode (T = 8) the planned lanes a row
+    # against 4 and 32 (a block holds 256 / lanes rows); at prefill
+    # (T = 512) the planned group of diagonal blocks a block against 1 and
+    # 8; and the threshold between the instances: each at T = 8 and 16 ----
+    def bdmm_run(fs, xs, **override):
+        def run():
+            outs = []
+            for x, f in zip(xs, fs):
+                k, q, p = f["L"].shape
+                u = BD._launch("bdmm", x.view(x.shape[0], k, p), f["L"], None,
+                               f["L"].dtype, q, **override)
+                outs += [u, BD._launch("bdmm", u.transpose(1, 2), f["R"],
+                                       None, f["R"].dtype, f["R"].shape[1],
+                                       **override)]
+            return outs
+        return run
+
+    def grids(fs, T_, **override):
+        out = []
+        for f in fs:
+            k, q, p = f["L"].shape
+            for blocks, contiguous in (((k, q, p), True),
+                                       ((q, f["R"].shape[1], k), False)):
+                g = BD.bdmm_geometry(T_, *blocks, 2, 32, contiguous,
+                                     **override)
+                out.append([g.instance, g.group, g.slab, g.tile_t, g.grid])
+        return out
+
+    for name, T_, knob, choices in (
+            ("a_gpt2_layer_nb128", T_dec, "lanes", (None, 4, 32)),
+            ("d_nemotron_w2", T_dec, "lanes", (None, 4, 32)),
+            ("e_codeqwen_w2", T_dec, "lanes", (None, 4, 32)),
+            ("a_gpt2_layer_nb128", T_pre, "group", (None, 1, 8)),
+            ("c_nemotron_w1", T_pre, "group", (None, 1, 8)),
+            ("d_nemotron_w2", T_pre, "group", (None, 1, 8)),
+            ("e_codeqwen_w2", T_pre, "group", (None, 1, 8)),
+            ("a_gpt2_layer_nb128", 8, "instance", ("decode", "prefill")),
+            ("a_gpt2_layer_nb128", 16, "instance", ("decode", "prefill")),
+            ("d_nemotron_w2", 8, "instance", ("decode", "prefill")),
+            ("d_nemotron_w2", 16, "instance", ("decode", "prefill"))):
+        fs = bdmm_sets[name][0]
+        xs = [torch.randn(T_, f["L"].shape[0] * f["L"].shape[2], generator=gb,
+                          device=dev).to(bf16) for f in fs]
+        line = {"phase": "bdmm_geometry", "call_set": name, "T": T_,
+                "knob": knob, "x_dtype": "bfloat16"}
+        for choice in choices:
+            override = {} if choice is None else {knob: choice}
+            run = bdmm_run(fs, xs, **override)
+            outs = run()
+            err, ok = 0.0, True
+            for i, (x, f) in enumerate(zip(xs, fs)):
+                k, q, p = f["L"].shape
+                u, y = outs[2 * i], outs[2 * i + 1]
+                for out, ref in ((u, bdmm_plain(x.view(T_, k, p), f["L"])),
+                                 (y, bdmm_plain(u.transpose(1, 2), f["R"]))):
+                    e, o = close(out, ref, "bfloat16")
+                    err, ok = max(err, e), ok and o
+            require(ok, f"bdmm_geometry {name} T={T_} {knob}={choice}: "
+                        f"err {err}")
+            t = timings(kernel=run)
+            line["plan" if choice is None else f"{knob}_{choice}"] = {
+                "ms": t["kernel_ms"], "card_ms": t["kernel_card_ms"],
+                "max_abs_err": err,
+                "stages": grids(fs, T_, **override)}
         emit(line)
 
     # -- 3. serve gpt2-medium at full width ---------------------------------
@@ -1291,6 +1579,8 @@ def main() -> int:
             "staged serve launched no paged_attention_span")
     serve_counts["bdmm"] = counts["bdmm"]
     del eng
+    emit({"phase": "serve_profile_staged",
+          **_profile_serve(cfg_st, params, watch=("bdmm",))})
     eng, reqs, counts, dt, out, _ = serve(cfg_st, params, 4, 32, 64, 8,
                                           seed=2, **qopts)
     emit({"phase": "serve_staged_quantized",
@@ -1307,7 +1597,10 @@ def main() -> int:
             and eng.stats["dense_fallbacks"] == 0,
             "the nblocks=128 int8 serve must run the int8 span kernel")
     serve_counts["bdmm_q"] = counts["bdmm_q"]
-    del eng, params
+    del eng
+    emit({"phase": "serve_profile_staged_quantized", "options": qopts,
+          **_profile_serve(cfg_st, params, watch=("bdmm",), **qopts)})
+    del params
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")

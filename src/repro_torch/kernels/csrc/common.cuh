@@ -1,8 +1,10 @@
 // Shared helpers for the hand-written Hopper kernels of repro_torch.
 //
-// Every kernel computes in fp32 with plain FMA (no TF32, no tensor cores):
-// loads widen bf16 to fp32, stores narrow fp32 to the output type with
-// round-to-nearest-even, which is what the reference's ``.astype`` does.
+// Every kernel computes in fp32: plain FMA, or (bdmm.cu's prefill instance)
+// TF32 tensor cores on operands split in two TF32 halves, three products
+// each, which holds fp32's accuracy.  Loads widen bf16 to fp32, stores narrow
+// fp32 to the output type with round-to-nearest-even, which is what the
+// reference's ``.astype`` does.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -82,9 +82,12 @@ def fused_fits(L_shape, R_shape) -> bool:
     branch of ``ops.monarch_mm``): a ``FIT_TILE_T``-row token tile's fp32
     intermediate (k*q), one padded factor block and a tile of x fit a
     block's shared memory.  This was the first design's own fit; it is kept
-    as the dispatch rule so the same shapes go fused and staged as before
-    (the reference too sends the 128-block shapes to its staged branch),
-    although the split kernel could take far wider ones (ROADMAP.md)."""
+    as the dispatch rule so the same shapes go fused and staged as before,
+    although the split kernel could take far wider ones (ROADMAP.md).  The
+    reference decides by another rule, its factors' bytes against a 10 MiB
+    VMEM budget, and sends the 128-block shapes (a 16384-wide intermediate,
+    staged here) to its fused kernel: a designed difference, pinned by
+    tests/test_torch_bdmm.py; the outputs agree either way."""
     return _fits(tuple(L_shape), tuple(R_shape))
 
 
