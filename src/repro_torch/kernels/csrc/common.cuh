@@ -11,6 +11,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 // dtype codes passed from Python (kernels/_build.py: DTYPE_CODES)
 #define DT_F32 0
 #define DT_BF16 1
@@ -172,12 +175,36 @@ __device__ __forceinline__ void stage(char* dst, int dst_stride, int nseg,
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, then return
 // the launch error (0 on success) so the Python wrapper can raise on it.
+// The attribute is set once per (kernel, device), at the first launch that
+// needs more than the last setting: the engine's first eager step of a span
+// bucket sets every attribute its CUDA graph's capture then finds set, so
+// the capture records launches only.
 template <typename K>
 static cudaError_t prepare_smem(K kernel, size_t smem_bytes) {
-  if (smem_bytes > 48 * 1024) {
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes));
-  }
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  struct Set {
+    const void* kernel;
+    int device;
+    size_t bytes;
+  };
+  static std::mutex mu;
+  static std::vector<Set> done;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  Set* hit = nullptr;
+  for (Set& s : done)
+    if (s.kernel == key && s.device == device) hit = &s;
+  if (hit != nullptr && hit->bytes >= smem_bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  if (hit != nullptr)
+    hit->bytes = smem_bytes;
+  else
+    done.push_back(Set{key, device, smem_bytes});
   return cudaSuccess;
 }

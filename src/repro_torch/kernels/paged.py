@@ -305,7 +305,10 @@ def _launch_args(B: int, S: int, H: int, hd: int, pg: int, KV: int, MP: int,
 # device index -> (fp32 workspace, int32 tickets), grown to the largest
 # launch so far and reused: launches on one stream run one after another,
 # so a launch never meets another's partials, and each merging block resets
-# its ticket.  Two streams on one device would need one pair each.
+# its ticket.  Two streams on one device would need one pair each.  A
+# growth drops the old pair: a CUDA graph that launches on it holds it
+# (serving/step_graphs.py keeps :func:`workspaces` with each graph), and
+# no pair grows while a graph is captured.
 _WORKSPACE: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -315,12 +318,52 @@ def _workspace(device: torch.device, floats: int,
     zeroed tickets, at least ``tickets`` of them."""
     key = device.index if device.index is not None else -1
     ws, tk = _WORKSPACE.get(key, (None, None))
-    if ws is None or ws.numel() < floats:
+    grow_ws = ws is None or ws.numel() < floats
+    grow_tk = tk is None or tk.numel() < tickets
+    if ((grow_ws or grow_tk) and device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            "paged_attention_span: the span workspace would grow inside a "
+            "CUDA graph capture; size it first (reserve_workspace)")
+    if grow_ws:
         ws = torch.empty(floats, dtype=torch.float32, device=device)
-    if tk is None or tk.numel() < tickets:
+    if grow_tk:
         tk = torch.zeros(tickets, dtype=torch.int32, device=device)
     _WORKSPACE[key] = (ws, tk)
     return ws, tk
+
+
+def workspaces() -> tuple[torch.Tensor, ...]:
+    """Every device's current workspace and tickets: what a CUDA graph
+    captured now launches on, and must keep alive."""
+    return tuple(t for pair in _WORKSPACE.values() for t in pair)
+
+
+def span_workspace_size(B: int, H: int, hd: int, pg: int, MP: int,
+                        spans) -> tuple[int, int]:
+    """The workspace floats and tickets that launches at every span of
+    ``spans`` need over B rows of H heads (0, 0 where none splits): the
+    most of ``B * H * workspace_floats`` and ``B * H * n_tiles`` over
+    their geometries."""
+    floats = tickets = 0
+    for S in spans:
+        g = span_geometry(S, hd, pg, MP)
+        if g is not None and g.n_splits > 1:
+            floats = max(floats, B * H * g.workspace_floats)
+            tickets = max(tickets, B * H * g.n_tiles)
+    return floats, tickets
+
+
+def reserve_workspace(device: torch.device, B: int, H: int, hd: int,
+                      pg: int, MP: int, spans) -> tuple[int, int]:
+    """Size the device's workspace and tickets once for launches at every
+    span of ``spans`` (:func:`span_workspace_size`), so that the engine's
+    CUDA graphs, captured afterwards, all launch on the same buffers.
+    Returns the sizes."""
+    floats, tickets = span_workspace_size(B, H, hd, pg, MP, spans)
+    if floats:
+        _workspace(device, floats, tickets)
+    return floats, tickets
 
 
 def paged_attention_span(q: torch.Tensor, k_pages: torch.Tensor,
@@ -502,5 +545,6 @@ __all__ = ["paged_attention", "paged_attention_span",
            "paged_attention_span_plain", "paged_attention_span_split_plain",
            "paged_attention_sharded", "paged_attention_span_sharded",
            "smem_bytes", "query_tile", "span_fits", "span_geometry",
-           "split_pages", "SpanGeometry", "GLOBAL_WINDOW", "QUERY_TILE",
-           "PAGES_PER_SPLIT", "TILE_PAGES_PER_SPLIT"]
+           "split_pages", "span_workspace_size", "reserve_workspace",
+           "SpanGeometry", "GLOBAL_WINDOW", "QUERY_TILE", "PAGES_PER_SPLIT",
+           "TILE_PAGES_PER_SPLIT"]

@@ -14,8 +14,10 @@ Padding and shared-prefix positions all land on the sink page 0, where
 duplicate writes race harmlessly (the sink is never read unmasked).  An
 int8 pool (``kv_dtype="int8"``) carries (P, KV) fp32 ``k_scales`` /
 ``v_scales`` beside its pages; fresh rows are quantized into it in place by
-``core.quant.quantize_kv_write`` and read back dequantized, on chip by the
-int8 span kernel or on the gathered blocks by the dense fallback.
+``kernels.kv_write.quantize_kv_write`` (its CUDA kernel on the card,
+``core.quant.quantize_kv_write`` on the CPU) and read back dequantized, on
+chip by the int8 span kernel or on the gathered blocks by the dense
+fallback.
 
 MoE, the ring cache and cross-attention are not ported yet and raise
 ``NotImplementedError``.
@@ -30,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.linear import linear_apply, linear_init
-from repro_torch.core.quant import dequantize_kv_pages, quantize_kv_write
+from repro_torch.core.quant import dequantize_kv_pages
+from repro_torch.kernels import kv_write
 from repro_torch.kernels.paged import GLOBAL_WINDOW
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.api import all_gather_cat, all_reduce_sum
@@ -304,10 +307,12 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
     positions <= q_pos).
 
     An int8 pool quantizes the span rows into its pages with
-    ``quantize_kv_write``; the stored-row rescale runs over the span's
-    logical page range read from the page table (``ceil(S / page) + 1``
-    entries a row), which covers every non-sink page the writes name, and
-    any extra page (a shared one, the sink) rescales by exactly 1.0.
+    ``kernels.kv_write.quantize_kv_write``; the stored-row rescale runs
+    over the span's logical page range read from the page table
+    (``ceil(S / page) + 1`` entries a row), which covers every non-sink
+    page the writes name; any extra page (a shared one, the sink)
+    rescales by exactly 1.0, and a page listed twice (the sink, the last
+    column repeated by the clamp) is rescaled once.
 
     Under tensor parallelism the pool holds this rank's KV heads when the
     plan splits them: the span kernel then runs per rank as B7.  A pool
@@ -338,8 +343,8 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
             q_pos[:, :1] // pg + torch.arange(nK, device=q.device)[None, :],
             0, MP - 1)
         resc = torch.gather(pt, 1, jcols)                     # (B, nK)
-        quantize_kv_write(kp, ks, phys, off, k, rescale_phys=resc)
-        quantize_kv_write(vp, vs, phys, off, v, rescale_phys=resc)
+        kv_write.quantize_kv_write(kp, ks, phys, off, k, rescale_phys=resc)
+        kv_write.quantize_kv_write(vp, vs, phys, off, v, rescale_phys=resc)
     else:
         kp[phys, off] = k.to(kp.dtype)
         vp[phys, off] = v.to(vp.dtype)

@@ -35,7 +35,19 @@ identical traffic.  What carries over unchanged:
 
 Per step the host uploads one packed int32 buffer (span tokens, starts,
 span lengths, flags, fork points, page tables) from pinned memory without
-blocking, so the upload never waits for the device.
+blocking, so the upload never waits for the device; a step's copy-on-write
+fork list takes the same path.
+
+**CUDA graphs** (the counterpart of the reference's ``_mixed_step_jit``):
+on a CUDA device at tp = 1, every step of a span bucket after its first
+replays one captured graph of the whole step (``serving.step_graphs``):
+the packed buffer lands in the bucket's static input, the chained device
+token is one persistent buffer read and written in place, and the sampled
+tokens are cloned out of the graph before the harvest reads them a step
+later.  There is no switch, as the reference always jits.  Under a mesh
+the step stays eager: gloo's collectives run on the host, between the
+kernels, and a graph cannot hold them.  On the CPU the same step runs
+eagerly.
 
 **Tensor parallelism** (``mesh=``, a ``launch.mesh.Mesh`` with ``data =
 1`` and ``model = tp``): the engine is SPMD — every rank is a process
@@ -75,6 +87,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import itertools
 import math
 import os
@@ -87,6 +100,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device, tree_to
 from repro_torch.core.quant import (BITS_BY_NAME, KV_DTYPE_BYTES,
                                     kv_page_bytes)
+from repro_torch.kernels.paged import reserve_workspace
 from repro_torch.models import transformer as T
 from repro_torch.models.decode_path import prepare_decode_params
 from repro_torch.models.config import ModelConfig
@@ -100,6 +114,7 @@ from repro_torch.serving.request import (FinishReason, Request, RequestState,
                                          SamplingParams, Sequence)
 from repro_torch.serving.scheduler import (CostModel, IterationScheduler,
                                            SchedulerConfig, StepPlan)
+from repro_torch.serving.step_graphs import StepGraphs
 from repro_torch.serving.tracing import NULL_TRACER, ChromeTracer
 from repro_torch.sharding.api import broadcast_time
 from repro_torch.sharding.params import shard_params, tp_plan
@@ -133,14 +148,32 @@ def _mixed_step(params, pool, cfg: ModelConfig, chunk_tok, tok_dev, use_dev,
     never waits on a host read-back.  Rows whose span reaches the end of
     their known tokens (``sample_mask``) take the greedy token; everyone
     else keeps their device token.  ``wstart`` (B,) is each row's
-    copy-on-write fork point.  Returns (sampled, new device tokens); the
-    pool is updated in place."""
+    copy-on-write fork point.  Returns (sampled, new device tokens,
+    logits); the pool is updated in place."""
     tokens = chunk_tok.clone()
     tokens[:, 0] = torch.where(use_dev, tok_dev, chunk_tok[:, 0])
     logits, _ = T.paged_mixed_step(params, tokens, start, span, pt, pool,
                                    cfg, write_start=wstart, plan=plan)
     sampled = torch.argmax(logits, dim=-1).to(torch.int32)
-    return sampled, torch.where(sample_mask, sampled, tok_dev)
+    return sampled, torch.where(sample_mask, sampled, tok_dev), logits
+
+
+def _packed_step(params, pool, cfg: ModelConfig, tok: torch.Tensor,
+                 packed: torch.Tensor, S: int, plan=None):
+    """:func:`_mixed_step` on one step's packed int32 buffer (``B * S`` span
+    tokens, then starts, span lengths, use-device flags, sample flags and
+    fork points, B each, then the (B, MP) page tables), with the chained
+    device token ``tok`` (B,) updated in place: the function each step
+    graph captures, and the eager step.  Returns (sampled, logits)."""
+    B = tok.shape[0]
+    o = B * S
+    cols = [packed[o + i * B:o + (i + 1) * B] for i in range(5)]
+    sampled, new_tok, logits = _mixed_step(
+        params, pool, cfg, packed[:o].view(B, S), tok, cols[2].bool(),
+        cols[0], cols[1], packed[o + 5 * B:].view(B, -1), cols[4],
+        cols[3].bool(), plan=plan)
+    tok.copy_(new_tok)
+    return sampled, logits
 
 
 class _Uploader:
@@ -157,9 +190,13 @@ class _Uploader:
         self._events: list = [None] * self.RING
         self._i = 0
 
-    def __call__(self, host: np.ndarray) -> torch.Tensor:
+    def __call__(self, host: np.ndarray,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``host`` on the device: a new tensor, or copied into ``out``."""
         if not self.pinned:
-            return torch.from_numpy(host.copy())
+            if out is None:
+                return torch.from_numpy(host.copy())
+            return out.copy_(torch.from_numpy(host))
         i = self._i
         self._i = (i + 1) % self.RING
         if self._events[i] is not None:
@@ -169,10 +206,13 @@ class _Uploader:
             buf = self._bufs[i] = torch.empty(
                 max(host.size, 1024), dtype=torch.int32, pin_memory=True)
         buf[:host.size].numpy()[:] = host
-        dev = buf[:host.size].to(self.device, non_blocking=True)
+        if out is None:
+            out = buf[:host.size].to(self.device, non_blocking=True)
+        else:
+            out.copy_(buf[:host.size], non_blocking=True)
         ev = self._events[i] = torch.cuda.Event()
         ev.record()
-        return dev
+        return out
 
 
 class ContinuousBatchingEngine:
@@ -280,12 +320,33 @@ class ContinuousBatchingEngine:
 
         S, MP = max_slots, self.max_pages_per_seq
         self.max_slots = S
+        # the chained device token: one buffer, read and written in place
         self._tok = torch.zeros((S,), dtype=torch.int32, device=self.device)
         # host-side truth of the page tables and COW fork points: uploaded
         # with every step's packed buffer
         self._pt = np.full((S, MP), SINK_PAGE, np.int32)
         self._wstart = np.zeros((S,), np.int32)
         self._upload = _Uploader(self.device)
+        # the last dispatched step's logits (max_slots, Vp) on the device
+        # (a graph replay overwrites them at its bucket's next step) and
+        # its rows with a span
+        self.step_logits: Optional[torch.Tensor] = None
+        self.step_rows = np.zeros((S,), bool)
+        # one step of span bucket S: _step(packed device buffer, S); it holds
+        # no reference to the engine, so that the engine and its graphs'
+        # memory are freed as soon as nothing holds the engine
+        self._step = functools.partial(_packed_step, self.params, self.pool,
+                                       self.cfg, self._tok, plan=self.plan)
+        self.step_graphs: Optional[StepGraphs] = None
+        if self.device.type == "cuda" and mesh is None:
+            self.step_graphs = StepGraphs(self._step)
+            if self._kernel_decision() == "kernel":
+                # one workspace for the span kernel at every bucket, before
+                # the first capture (kernels/paged.py: reserve_workspace)
+                buckets = [1 << i for i in range(
+                    _bucket(sc.chunk_size).bit_length())]
+                reserve_workspace(self.device, S, cfg.n_heads, cfg.hd,
+                                  page_size, MP, buckets)
 
         self.waiting: collections.deque[Request] = collections.deque()
         self.running: dict[int, Sequence] = {}          # slot -> Sequence
@@ -612,12 +673,12 @@ class ContinuousBatchingEngine:
             # whole-page device copies; rows past the fork point are stale
             # source data, masked by causality until overwritten
             n = _bucket(len(cow_ops))
-            src = np.full((n,), SINK_PAGE, np.int64)  # pad: sink onto itself
-            dst = np.full((n,), SINK_PAGE, np.int64)
+            src = np.full((n,), SINK_PAGE, np.int32)  # pad: sink onto itself
+            dst = np.full((n,), SINK_PAGE, np.int32)
             for i, (s, d) in enumerate(cow_ops):
                 src[i], dst[i] = s, d
-            T.cow_copy_pages(self.pool, torch.from_numpy(src).to(self.device),
-                             torch.from_numpy(dst).to(self.device))
+            dev = self._upload(np.concatenate([src, dst]))
+            T.cow_copy_pages(self.pool, dev[:n], dev[n:])
         if self.metrics_enabled:
             self._g_queue.set(len(self.waiting))
         return spans
@@ -723,16 +784,14 @@ class ContinuousBatchingEngine:
 
         packed = np.concatenate([chunk_tok.reshape(-1), start, span, use_dev,
                                  sample, self._wstart, self._pt.reshape(-1)])
-        dev = self._upload(packed)
-        o = B * Sb
-        cols = [dev[o + i * B:o + (i + 1) * B] for i in range(5)]
-        pt = dev[o + 5 * B:].view(B, self.max_pages_per_seq)
-        sampled, self._tok = _mixed_step(
-            self.params, self.pool, self.cfg, dev[:o].view(B, Sb), self._tok,
-            cols[2].bool(), cols[0], cols[1], pt, cols[4], cols[3].bool(),
-            plan=self.plan)
+        if self.step_graphs is not None:
+            sampled, logits = self.step_graphs.run(Sb, packed, self._upload)
+        else:
+            sampled, logits = self._step(self._upload(packed), Sb)
+        self.step_logits, self.step_rows = logits, span > 0
         self._pending.append({"sampled": sampled, "slots": harvest,
                               "step": self.step_idx})
+
 
     def _kernel_decision(self) -> str:
         """The kernel-vs-dense decision the mixed step takes:

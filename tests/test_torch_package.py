@@ -164,4 +164,5 @@ def test_cpu_wrappers_count_no_launches():
                           "paged_attention_span": 0, "monarch_fused_q": 0,
                           "bdmm_q": 0, "paged_attention_span_q": 0,
                           "paged_attention_span_sharded": 0,
-                          "paged_attention_span_sharded_q": 0}
+                          "paged_attention_span_sharded_q": 0,
+                          "quantize_kv_write": 0}
