@@ -42,7 +42,11 @@ Phases, each printed as one JSON object per line:
               the span kernel's decode and prefill calls at other pages a
               split (1, 2, 4, 8, unsplit); B2/B5 at ragged and odd shapes
               through both instances; and B2's call sets at other lanes a
-              row, diagonal blocks a tile and instance (bdmm_geometry)
+              row, diagonal blocks a tile and instance (bdmm_geometry);
+              X3, the token draw (sample_tokens: a threefry Gumbel draw
+              at temperature > 0, else argmax, and the key split), its
+              noise and tokens torch.equal to its plain version at
+              gpt2-medium's and nemotron-4-15b's vocabularies
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels, each
@@ -68,15 +72,29 @@ Phases, each printed as one JSON object per line:
               (``--serves`` stops after the float and quantized serves and
               their windows, so that an older checkout can be timed in the
               same call)
+  3c. gqa     nemotron-4-15b at full width (32 layers, 48 query heads
+              over 8 KV heads, hd 128, vocab 256000, seeded random
+              weights), the card's first GQA serve: B3/B6 at its decode
+              call set against their plain versions and SDPA; the float
+              serve (B1, B2 staged, B3) and an int8 serve (int8 factors,
+              K and V fused, int8 KV pages: B4, B5, B6, X2), each with its
+              replays torch.equal to eager steps and a profiled window
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
-              the same step in float64 on the CPU printed beside), then
+              the same step in float64 on the CPU printed beside, and
+              where they part: the residual stream after the embedding
+              and after each layer, the final norm, the LM head's input
+              and output, card vs CPU and each against float64), then
               greedy tokens of
               three engine traces (plain; a tiny pool that preempts;
-              shared prefixes that fork pages copy-on-write); again with
+              shared prefixes that fork pages copy-on-write); the same
+              traces sampled at temperature 0.8 (a token may differ only
+              at a near tie, which is printed); again with
               int8 factors; and with int8 factors and int8 KV pages (stored
-              pages and scales after one step, and token agreement)
+              pages and scales after one step, and token agreement); then
+              nemotron-4-15b at full width cut to 2 layers: one step (with
+              its per-layer breakdown) and a greedy trace
   5. tp       tensor parallelism on the one card: B7, the span kernel per
               rank on its heads of the phase-2 pools (tp 2 and 4, float and
               int8 pages), against its plain version and, concatenated,
@@ -90,7 +108,8 @@ Phases, each printed as one JSON object per line:
               B7 launches and 144 local Monarch launches a step, no
               float-page span launch and no dense fallback
 
-It exits non-zero on the first failed check, and when a rank fails.  The
+It exits non-zero on the first failed check, and when a rank fails.  Each
+phase ends with its seconds (``phase_seconds``).  The
 last lines are the per-kernel summary, the card's name and power limit
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  It needs one
 CUDA device and never imports JAX or the reference package.
@@ -138,13 +157,18 @@ INT8_KV_TOKEN_AGREEMENT = 0.95
 # the serving phases' engine options (8 slots unless a phase says so)
 SERVE_KW = dict(max_slots=8, page_size=16, max_len=1024, chunk_size=64,
                 use_paged_kernel=True)
+# the sampled traces' temperature (phase 4)
+SAMPLE_TEMPERATURE = 0.8
+# requests of the nemotron-4-15b serves (phase 3c), as gpt2-medium's
+NEMOTRON_REQUESTS = 8
 
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
            "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
            "paged_attention_span_sharded", "paged_attention_span_sharded_q",
-           "quantize_kv_write")
-# quantize_kv_write replaces jnp code that XLA compiles into the
-# reference's jitted step, not a Pallas kernel
+           "quantize_kv_write", "sample_tokens")
+# quantize_kv_write and sample_tokens replace jnp code that XLA compiles
+# into the reference's jitted step, not Pallas kernels
+JNP_KERNELS = ("quantize_kv_write", "sample_tokens")
 REPLACES = {
     "monarch_fused": "src/repro/kernels/monarch.py:58",
     "bdmm": "src/repro/kernels/bdmm.py:49",
@@ -155,6 +179,7 @@ REPLACES = {
     "paged_attention_span_sharded": "src/repro/kernels/paged.py:240",
     "paged_attention_span_sharded_q": "src/repro/kernels/paged.py:240",
     "quantize_kv_write": "src/repro/core/quant.py:238",
+    "sample_tokens": "src/repro/serving/engine.py:119",
 }
 SOURCES = {
     "monarch_fused": "src/repro_torch/kernels/csrc/monarch.cu",
@@ -166,17 +191,20 @@ SOURCES = {
     "paged_attention_span_sharded": "src/repro_torch/kernels/csrc/paged.cu",
     "paged_attention_span_sharded_q": "src/repro_torch/kernels/csrc/paged.cu",
     "quantize_kv_write": "src/repro_torch/kernels/csrc/kv_write.cu",
+    "sample_tokens": "src/repro_torch/kernels/csrc/sample.cu",
 }
 # the profiler's kernel names (substrings) and the launch counters that
 # count them: each counted launch of quantize_kv_write is one
-# kv_store_kernel (with a memset and two more kernels before it)
+# kv_store_kernel (with a memset and two more kernels before it), each of
+# sample_tokens one sample_partial_kernel (and one merge after it)
 PROFILED = {"monarch_fused_kernel": ("monarch_fused", "monarch_fused_q"),
             "bdmm_": ("bdmm", "bdmm_q"),
             "paged_span_kernel": ("paged_attention_span",
                                   "paged_attention_span_q",
                                   "paged_attention_span_sharded",
                                   "paged_attention_span_sharded_q"),
-            "kv_store_kernel": ("quantize_kv_write",)}
+            "kv_store_kernel": ("quantize_kv_write",),
+            "sample_partial_kernel": ("sample_tokens",)}
 # the least share of a window's counted launches the profiler must show
 PROFILED_SHARE = 0.9
 # ranks of the tensor-parallel phase: processes that share the one card
@@ -422,53 +450,180 @@ def _profile_serve(cfg, params, watch: tuple = (), **engine_kw) -> dict:
     return {"prefill_T512": prefill, "decode_T8": decode}
 
 
+def _eager_step(eng, pool, tok, keys, packed, bucket):
+    """``_packed_step`` of the engine's step on a pool, chained token and
+    keys of the caller's; ``bucket`` is a graph's key: (S, draw), or S in
+    an older checkout, whose step has no keys."""
+    import torch
+
+    from repro_torch.serving.engine import _packed_step
+
+    buf = torch.from_numpy(packed).to(tok.device)
+    if isinstance(bucket, tuple):
+        return _packed_step(eng.params, pool, eng.cfg, tok, keys, eng._temp,
+                            buf, bucket)
+    return _packed_step(eng.params, pool, eng.cfg, tok, buf, bucket)
+
+
+def _greedy_bucket(eng, S: int):
+    """The key of span bucket ``S``'s greedy graph among those the engine
+    has seen (S itself in an older checkout)."""
+    return next(k for k in _graphs(eng).inputs_seen
+                if k == S or k == (S, False))
+
+
 def _eager_launches(eng, S: int) -> dict:
-    """The launches one eager step of bucket ``S`` counts: ``_packed_step``
-    on the bucket's latest packed input, a clone of the pool and of the
-    chained token."""
+    """The launches one eager step of span bucket ``S`` (greedy) counts:
+    ``_packed_step`` on the bucket's latest packed input, a clone of the
+    pool, of the chained token and of the keys."""
     import torch
 
     from repro_torch import tree_map
     from repro_torch.kernels import launches
-    from repro_torch.serving.engine import _packed_step
 
-    packed = _graphs(eng).inputs_seen[S]
+    bucket = _greedy_bucket(eng, S)
+    packed = _graphs(eng).inputs_seen[bucket]
     pool = tree_map(torch.clone, eng.pool)
-    tok = eng._tok.clone()
+    keys = getattr(eng, "_keys", None)
     before = launches()
-    _packed_step(eng.params, pool, eng.cfg, tok,
-                 torch.from_numpy(packed).to(tok.device), S)
+    _eager_step(eng, pool, eng._tok.clone(),
+                None if keys is None else keys.clone(), packed, bucket)
     after = launches()
     return {c: after[c] - before[c] for c in after if after[c] != before[c]}
 
 
 def _drive(eng, prompts, stagger: int, max_new: int, what: str,
-           logits: Optional[list] = None) -> list:
+           logits: Optional[list] = None,
+           sampling: Optional[tuple[float, int]] = None,
+           draws: Optional[dict] = None) -> list:
     """Serve ``prompts`` to the end, one more every ``stagger`` steps (0:
     all at once); returns the requests.  ``logits``: each dispatched
     step's logits of the rows with a span, over the real vocab, on the
-    host (read right after the step: a graph's replay overwrites them)."""
+    host (read right after the step: a graph's replay overwrites them).
+    ``sampling`` (temperature, seed): request i samples from seed + i,
+    else greedy; ``draws``: the logits row each (request i, token j) was
+    drawn from (the step's sampling rows, before their tokens are read
+    back)."""
     import torch
 
     from repro_torch.serving import SamplingParams
 
-    pending, reqs, steps = list(prompts), [], 0
+    pending, reqs, steps, index = list(prompts), [], 0, {}
     while pending or eng.has_work():
         if pending and (stagger == 0 or steps % stagger == 0):
             while pending:
-                reqs.append(eng.add_request(
-                    pending.pop(0), SamplingParams(max_new_tokens=max_new)))
+                sp = SamplingParams(max_new_tokens=max_new)
+                if sampling is not None:
+                    sp = SamplingParams(max_new_tokens=max_new,
+                                        temperature=sampling[0],
+                                        seed=sampling[1] + len(reqs))
+                r = eng.add_request(pending.pop(0), sp)
+                index[r.req_id] = len(reqs)
+                reqs.append(r)
                 if stagger:
                     break
         before = eng.stats["mixed_steps"]
         eng.step()
-        if logits is not None and eng.stats["mixed_steps"] > before:
+        if eng.stats["mixed_steps"] > before:
             lg = eng.step_logits
-            rows = torch.from_numpy(eng.step_rows).to(lg.device)
-            logits.append(lg[rows, :eng.cfg.vocab].float().cpu())
+            if logits is not None:
+                rows = torch.from_numpy(eng.step_rows).to(lg.device)
+                logits.append(lg[rows, :eng.cfg.vocab].float().cpu())
+            if draws is not None:
+                # every earlier step is harvested: token j is this one's
+                for slot, seq in eng._pending[-1]["slots"]:
+                    j = len(seq.request.output_tokens)
+                    if j < max_new:
+                        draws[(index[seq.req_id], j)] = \
+                            lg[slot, :eng.cfg.vocab].float().cpu()
         steps += 1
         require(steps < 1000, f"{what} did not finish")
     return reqs
+
+
+def _sampled_flips(toks_a: list, toks_b: list, draws_a: dict,
+                   draws_b: dict, temperature: float, seed: int) -> list:
+    """Each request whose tokens differ between two runs (a: the card, b:
+    the CPU), at its first differing draw j: the margin between the two
+    best perturbed scores ``logit / t + gumbel`` of b's logits under the
+    draw's key (request i's stream from ``PRNGKey(seed + i)``, split j
+    times), and the largest scaled logit difference a - b.  The draw can
+    flip only where twice that difference reaches the margin (a near
+    tie)."""
+    import torch
+
+    from repro_torch.core import prng
+
+    t = torch.tensor(temperature, dtype=torch.float32)
+    out = []
+    for i, (a, b) in enumerate(zip(toks_a, toks_b)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        key = prng.prng_key(seed + i)
+        for _ in range(j):
+            key = prng.split(key)[1]
+        la, lb = draws_a[(i, j)], draws_b[(i, j)]
+        scores = lb / t + prng.gumbel(prng.split(key)[0], lb.shape[-1])
+        top = torch.topk(scores, 2)
+        margin = float(top.values[0] - top.values[1])
+        diff = float((la - lb).abs().max() / t)
+        # the reconstruction's own check: b's draw is b's token
+        require(int(top.indices[0]) == b[j],
+                f"request {i} token {j}: the draw's key is not reproduced")
+        out.append({"request": i, "token": j, "card": a[j], "cpu": b[j],
+                    "margin": margin, "max_scaled_logit_diff": diff,
+                    "near_tie": 2 * diff >= margin})
+    return out
+
+
+def _layered_mixed_step(params, tokens, start, span_len, page_table, pool,
+                        cfg, record) -> "torch.Tensor":
+    """``transformer.paged_mixed_step``'s body op for op (the same logits,
+    bitwise), handing each stage's output to ``record(name, tensor)``: the
+    embedding, each layer's residual stream, the final norm, and the LM
+    head's input (the rows it reads).  Returns the (B, Vp) logits."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    x = L.embed(params["embedding"], tokens, cfg, T._dtype(cfg))
+    record("embed", x)
+    for i, win in enumerate(T.layer_windows(cfg)):
+        x = T.attn_block_apply(
+            T.layer_params(params["decoder"]["layers"], i), x, cfg,
+            window=win, cache=T.layer_params(pool["layers"], i), pos=start,
+            page_table=page_table, span_len=span_len)
+        record(f"layer_{i}", x)
+    x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
+    record("final_norm", x)
+    idx = (torch.clamp(span_len.long(), min=1) - 1)[:, None, None]
+    xl = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
+    record("head_in", xl)
+    return L.unembed(params["embedding"], xl, cfg)[:, 0]
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _per_layer(card: dict, cpu: dict, fp64: dict) -> dict:
+    """Each stage's relative difference card vs CPU fp32 and each side's
+    against the float64 witness; the first stage where card and CPU
+    differ at all, and the first stage after it whose card-vs-CPU
+    difference exceeds twice the stage's before it."""
+    names = list(card)
+    r = [_rel(card[n], cpu[n]) for n in names]
+    return {"stages": names, "card_vs_cpu": r,
+            "card_vs_fp64": [_rel(card[n], fp64[n]) for n in names],
+            "cpu_vs_fp64": [_rel(cpu[n], fp64[n]) for n in names],
+            "first_differs": next((n for n, x in zip(names, r) if x > 0),
+                                  None),
+            "first_jump": next((names[i] for i in range(1, len(r))
+                                if 0 < 2 * r[i - 1] < r[i]), None)}
 
 
 def _checksum(tree) -> float:
@@ -546,9 +701,9 @@ def _graph_stats(eng) -> Optional[dict]:
 def _replay_vs_eager(eng) -> dict:
     """One replay of each captured bucket, on the latest packed input the
     serve gave it, against ``_packed_step`` run eagerly on the same input,
-    a clone of the pool and a clone of the chained token: the sampled
-    tokens, the logits, the token after the step and every page and scale
-    ``torch.equal``.  A float pool's sink page (page 0) is left out: the
+    a clone of the pool, of the chained token and of the keys: the sampled
+    tokens, the logits, the token and keys after the step and every page
+    and scale ``torch.equal``.  A float pool's sink page (page 0) is left out: the
     padding rows' writes collide there, and an index_put on the card
     resolves duplicates in no fixed order (the int8 pool's kernel does,
     so its sink is compared too).  The engine's pool takes the replay's
@@ -556,15 +711,14 @@ def _replay_vs_eager(eng) -> dict:
     import torch
 
     from repro_torch import tree_map
-    from repro_torch.serving.engine import _packed_step
 
     g = _graphs(eng)
     out = {}
     for S, packed in sorted(g.inputs_seen.items()):
         pool = tree_map(torch.clone, eng.pool)
         tok = eng._tok.clone()
-        s_e, l_e = _packed_step(eng.params, pool, eng.cfg, tok,
-                                torch.from_numpy(packed).to(tok.device), S)
+        keys = eng._keys.clone()
+        s_e, l_e = _eager_step(eng, pool, tok, keys, packed, S)
         n = g.replays
         s_g, l_g = g.run(S, packed, eng._upload)
         torch.cuda.synchronize()
@@ -575,14 +729,15 @@ def _replay_vs_eager(eng) -> dict:
         pages = all(torch.equal(a[:, 1:], b[:, 1:])
                     if a.dim() == 5 and a.dtype != torch.int8
                     else torch.equal(a, b) for a, b in zip(mine, pools))
-        out[S] = {"sampled": torch.equal(s_g, s_e),
-                  "logits": torch.equal(l_g, l_e),
-                  "token": torch.equal(eng._tok, tok),
-                  "pages_and_scales": pages,
-                  "replayed": g.replays == n + 1}
-        require(all(out[S].values()),
+        out[str(S)] = {"sampled": torch.equal(s_g, s_e),
+                       "logits": torch.equal(l_g, l_e),
+                       "token": torch.equal(eng._tok, tok),
+                       "keys": torch.equal(eng._keys, keys),
+                       "pages_and_scales": pages,
+                       "replayed": g.replays == n + 1}
+        require(all(out[str(S)].values()),
                 f"bucket {S}: the replay differs from the eager step: "
-                f"{out[S]}")
+                f"{out[str(S)]}")
     return out
 
 
@@ -732,6 +887,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        """Print the seconds since the last phase ended."""
+        now = time.perf_counter()
+        emit({"phase": "phase_seconds", "name": name,
+              "seconds": now - t_phase[0]})
+        t_phase[0] = now
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -742,6 +905,7 @@ def main() -> int:
           "cuda": torch.version.cuda,
           "ptxas": {n: _ptxas_report(log)
                     for n, log in _build.BUILD_LOG.items()}})
+    phase_done("1 build")
 
     if "--serves" in sys.argv[1:]:
         # the profiled serves alone: float and quantized (timed serve and
@@ -1876,17 +2040,88 @@ def main() -> int:
     summary["quantize_kv_write"] = summary_entry(
         kv_summary, kv_summary["bound_ms"], kv_summary["bound_by"])
 
+    # -- 2l. sample_tokens (X3): the token draw and key split, one call of
+    # two launches (csrc/sample.cu).  Its Gumbel noise (the debug entry)
+    # torch.equal to core.prng.gumbel on the card, and its tokens and
+    # split keys torch.equal to the plain version's, at gpt2-medium's and
+    # nemotron-4-15b's padded vocabularies, B = 8: rows at temperatures
+    # 0.5-1.3, greedy rows (0 and below), rows that do not sample this
+    # step; with the draw on and off (a greedy batch).  The CPU's plain
+    # version is a reading: its log may differ from the card's logf by an
+    # ulp.  The bound counts the logits read once and the keys, and the
+    # drawing rows' fp32 operations (7 a column; the threefry rounds'
+    # integer work has no rate in the table) ---------------------------
+    from repro_torch.core import prng as PR
+    from repro_torch.kernels import sample as SM
+
+    temps8 = torch.tensor([0.8, 0.8, 0.0, 1.3, 0.8, -1.0, 0.8, 0.5],
+                          device=dev)
+    mask8 = torch.tensor([1, 1, 1, 1, 0, 1, 1, 0], dtype=torch.bool,
+                         device=dev)
+    keys8 = PR.to_i32(torch.stack([PR.prng_key(7 + i) for i in
+                                     range(8)])).to(dev)
+    x3_summary = None
+    for vname, Vp in (("gpt2-medium", gpt2.vocab_padded),
+                      ("nemotron-4-15b",
+                       get_config("nemotron-4-15b").vocab_padded)):
+        lg = randn(8, Vp) * 3.0
+        draw_keys = PR.to_i32(PR.split(PR.from_i32(keys8))[:, 0])
+        same_noise = torch.equal(SM.gumbel_noise(draw_keys, Vp),
+                                 PR.gumbel(PR.from_i32(draw_keys), Vp))
+        for draw in (True, False):
+            ka, kb, kc = (keys8.clone() for _ in range(3))
+            before = launches()["sample_tokens"]
+            ta = SM.sample_tokens(lg, temps8, ka, mask8, draw)
+            n_launch = launches()["sample_tokens"] - before
+            tb = SM.sample_tokens_plain(lg, temps8, kb, mask8, draw)
+            same = torch.equal(ta, tb) and torch.equal(ka, kb)
+            again = torch.equal(ta, SM.sample_tokens(lg, temps8, kc, mask8,
+                                                     draw))
+            kd = keys8.cpu()
+            on_cpu = SM.sample_tokens_plain(lg.cpu(), temps8.cpu(), kd,
+                                            mask8.cpu(), draw)
+            n_draw = int((temps8 > 0).sum()) if draw else 0
+            bms, by = bound_ms(8 * Vp * 4 + 8 * (4 + 1 + 16 + 4),
+                               7 * n_draw * Vp, False)
+            kt, kp = keys8.clone(), keys8.clone()
+            line = {"phase": "kernel", "kernel": "sample_tokens",
+                    "vocab": vname, "V": Vp, "B": 8, "draw": draw,
+                    "drawing_rows": n_draw,
+                    "launches_per_call": n_launch,
+                    "bitwise_noise_vs_plain": same_noise,
+                    "bitwise_tokens_and_keys_vs_plain": same,
+                    "deterministic": again,
+                    "tokens_equal_cpu_plain": torch.equal(ta.cpu(), on_cpu)
+                    and torch.equal(kd, kb.cpu()),
+                    "max_abs_err": 0.0,
+                    **timings(kernel=lambda: SM.sample_tokens(
+                                  lg, temps8, kt, mask8, draw),
+                              plain=lambda: SM.sample_tokens_plain(
+                                  lg, temps8, kp, mask8, draw)),
+                    "library_ms": None, "library_card_ms": None,
+                    "bound_ms": bms, "bound_by": by}
+            emit(line)
+            require(same_noise and same and again and n_launch == 1,
+                    f"sample_tokens V={Vp} draw={draw}: noise bitwise "
+                    f"{same_noise}, tokens and keys bitwise {same}, "
+                    f"deterministic {again}, launches {n_launch}")
+            if vname == "nemotron-4-15b" and draw:
+                x3_summary = line
+    summary["sample_tokens"] = summary_entry(
+        x3_summary, x3_summary["bound_ms"], x3_summary["bound_by"])
+    phase_done("2 kernels")
+
     # -- 3. serve gpt2-medium at full width ---------------------------------
     serve = _serve
 
-    def kv_writes_each_step(prof: dict, what: str) -> None:
+    def kv_writes_each_step(prof: dict, what: str, n_layers: int) -> None:
         """An int8 pool's windows run quantize_kv_write twice a layer a
         step."""
         for wname, w in prof.items():
             n = w["launches_per_step"].get("quantize_kv_write")
-            require(n == 2 * cfg.n_layers,
+            require(n == 2 * n_layers,
                     f"{what} {wname} window: quantize_kv_write ran {n} "
-                    f"times a step, not {2 * cfg.n_layers}")
+                    f"times a step, not {2 * n_layers}")
 
     def graphs_replayed(eng, what: str, compare: bool = True) -> dict:
         """Every step of a tp = 1 serve on the card replays a captured
@@ -1932,6 +2167,8 @@ def main() -> int:
     require(counts["paged_attention_span"] > 0,
             "serve launched no paged_attention_span")
     require(st_["dense_fallbacks"] == 0, "serve fell back to dense attention")
+    require(counts["sample_tokens"] > 0,
+            "the serve drew no token through sample_tokens")
     serve_counts = dict(counts)
     del eng
 
@@ -2031,7 +2268,7 @@ def main() -> int:
           * cfg.n_layers,
           "quantize_kv_write_plain_wall_ms_per_call": write_ms["plain"],
           **prof_q})
-    kv_writes_each_step(prof_q, "quantized")
+    kv_writes_each_step(prof_q, "quantized", cfg.n_layers)
 
     eng, reqs, counts, dt, out, _ = serve(
         cfg, params, 4, 32, 64, 8, seed=2,
@@ -2092,8 +2329,161 @@ def main() -> int:
     prof_q = _profile_serve(cfg_st, params, watch=("bdmm",), **qopts)
     emit({"phase": "serve_profile_staged_quantized", "options": qopts,
           **prof_q})
-    kv_writes_each_step(prof_q, "staged int8")
+    kv_writes_each_step(prof_q, "staged int8", cfg.n_layers)
     del params
+    phase_done("3 serve")
+
+    # -- 3c. nemotron-4-15b at full width: the card's first GQA serve -------
+    # 32 layers, d 6144, 48 query heads over 8 KV heads at hd 128, d_ff
+    # 24576 (squared ReLU), vocab 256000, untied embeddings (12.6 GB of
+    # fp32 tables), published bf16 activations; Monarch paper policy: q, k,
+    # v, o fused (B1), w1 and w2 staged (B2).  First B3/B6 at the serve's
+    # decode call set (B = 8, H = 48, KV = 8, hd 128, page 16), each
+    # against its plain version, B6 torch.equal to B3 on dequantized
+    # pages, with SDPA on gathered pages (enable_gqa) as the yardstick
+    nemo = get_config("nemotron-4-15b")
+    cfg_n = dataclasses.replace(nemo, monarch=dataclasses.replace(
+        nemo.monarch, backend="pallas"))
+    Hn, KVn, hdn = cfg_n.n_heads, cfg_n.n_kv_heads, cfg_n.hd
+    S, starts, spans = cases["decode"]
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    sl = torch.tensor(spans, dtype=torch.int32, device=dev)
+    kn32, vn32 = randn(P, pg, KVn, hdn), randn(P, pg, KVn, hdn)
+    (knq, kns), (vnq, vns) = quantize_kv_page(kn32), quantize_kv_page(vn32)
+    knd, vnd = dequantize_kv_pages(knq, kns), dequantize_kv_pages(vnq, vns)
+    n_pages, n_pairs = span_work(starts, spans, GLOBAL_WINDOW)
+    T_all = MP * pg
+    tpos = torch.arange(T_all, device=dev)[None, None, :]
+    gmask = (tpos <= st.long()[:, None, None])[:, None]
+    for dt in (f32, bf16):
+        dn = dn_of(dt)
+        q = randn(B, S, Hn, hdn, dtype=dt)
+        for quant in (False, True):
+            kp, vp = (knq, vnq) if quant else (kn32.to(dt), vn32.to(dt))
+            sc = dict(k_scales=kns, v_scales=vns) if quant else {}
+            args = (q, kp, vp, pt, st, sl, GLOBAL_WINDOW)
+            out = paged_attention_span(*args, **sc)
+            err, ok = close(out, paged_attention_span_plain(
+                *args, sc.get("k_scales"), sc.get("v_scales")), dn)
+            again = torch.equal(out, paged_attention_span(*args, **sc))
+            same = (not quant) or torch.equal(out, paged_attention_span(
+                q, knd, vnd, pt, st, sl, GLOBAL_WINDOW))
+            name = "paged_attention_span" + ("_q" if quant else "")
+            errs[name] = max(errs[name], err)
+            kd_, vd_ = (knd.to(dt), vnd.to(dt)) if quant else (kp, vp)
+            kk = kd_[pt.long()].reshape(B, T_all, KVn, hdn).transpose(1, 2)
+            vv = vd_[pt.long()].reshape(B, T_all, KVn, hdn).transpose(1, 2)
+            qq = q.transpose(1, 2)
+            eb, pb = q.element_size(), kp.element_size()
+            bms, by = bound_ms(
+                2 * B * S * Hn * hdn * eb + 2 * n_pages * pg * KVn * hdn * pb
+                + (2 * n_pages * KVn * 4 if quant else 0),
+                4 * hdn * Hn * n_pairs, all_bf16=dt == bf16 and not quant)
+            line = {"phase": "kernel", "kernel": name,
+                    "call_set": "nemotron-4-15b decode (GQA)", "S": S,
+                    "window": GLOBAL_WINDOW, "q_dtype": dn,
+                    "page_dtype": "int8" if quant else dn, "B": B,
+                    "H": Hn, "KV": KVn, "hd": hdn, "page": pg,
+                    "pages_read": n_pages, "max_abs_err": err,
+                    "tol": TOL[dn], "deterministic": again,
+                    **({"bitwise_vs_paged_attention_span": same}
+                       if quant else {}),
+                    "launch": {**span_geometry(S, hdn, pg, MP)._asdict(),
+                               "blocks": B * Hn * span_geometry(
+                                   S, hdn, pg, MP).blocks},
+                    **timings(
+                        kernel=lambda: paged_attention_span(*args, **sc),
+                        plain=lambda: paged_attention_span_plain(
+                            *args, sc.get("k_scales"), sc.get("v_scales")),
+                        library=lambda: F.scaled_dot_product_attention(
+                            qq, kk, vv, attn_mask=gmask, enable_gqa=True)),
+                    "bound_ms": bms, "bound_by": by}
+            emit(line)
+            require(ok and again and same,
+                    f"{name} GQA decode {dn}: err {err}, deterministic "
+                    f"{again}, bitwise {same}")
+    del kn32, vn32, knq, vnq, knd, vnd
+
+    # the float serve, its replays against eager steps and its profiled
+    # window; then the int8 serve (int8 factors, K and V fused, int8 KV
+    # pages: B4, B5, B6 and X2) on the same pool bytes, and its window
+    params = T.init_params(cfg_n, seed=0, device=dev)
+    eng, reqs, counts, dt, out, prompt_toks = serve(
+        cfg_n, params, NEMOTRON_REQUESTS, 32, 256, 32, seed=0)
+    st_ = eng.stats
+    n_pool_bytes = eng.pool_host.stats().pool_bytes
+    emit({"phase": "serve_nemotron", "model": "nemotron-4-15b",
+          "dtype": cfg_n.dtype, "layers": cfg_n.n_layers,
+          "heads": [Hn, KVn, hdn], "requests": len(reqs),
+          "prompt_tokens": prompt_toks, "new_tokens": out, "seconds": dt,
+          "tokens_per_s": out / dt, "steps": st_["mixed_steps"],
+          "kernel_dispatches": st_["kernel_dispatches"],
+          "dense_fallbacks": st_["dense_fallbacks"], "launches": counts,
+          "kv_dtype": eng.kv_dtype, "pool_pages": eng.pool_host.n_pages - 1,
+          "pool_bytes": n_pool_bytes,
+          "decode_weight_bytes": decode_weight_bytes(eng.params),
+          "decoder_weight_bytes": decode_weight_bytes(
+              eng.params["decoder"]),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+          "graphs": graphs_replayed(eng, "nemotron serve")})
+    require(counts["monarch_fused"] > 0 and counts["bdmm"] > 0
+            and counts["paged_attention_span"] > 0
+            and counts["sample_tokens"] > 0,
+            f"the nemotron serve must run B1, B2, B3 and X3: {counts}")
+    require(st_["dense_fallbacks"] == 0,
+            "the nemotron serve fell back to dense attention")
+    del eng
+    prof_n = _profile_serve(cfg_n, params, watch=("bdmm", "paged_span"))
+    emit({"phase": "serve_profile_nemotron", **prof_n})
+    for wname, w in prof_n.items():
+        seen = w["launches_per_step_profiled_vs_counted"]
+        require(all(seen[k][0] > 0 for k in ("monarch_fused_kernel", "bdmm_",
+                                             "paged_span_kernel")),
+                f"nemotron {wname} window: the profiler must show B1, B2 "
+                f"and B3: {seen}")
+    eng, reqs, counts, dt, out, _ = serve(
+        cfg_n, params, NEMOTRON_REQUESTS, 32, 256, 32, seed=0,
+        pool_bytes=n_pool_bytes, **qopts)
+    attn_keys = sorted(eng.params["decoder"]["layers"]["attn"])
+    emit({"phase": "serve_nemotron_quantized", "model": "nemotron-4-15b",
+          "options": qopts, "requests": len(reqs), "new_tokens": out,
+          "seconds": dt, "tokens_per_s": out / dt,
+          "steps": eng.stats["mixed_steps"],
+          "dense_fallbacks": eng.stats["dense_fallbacks"],
+          "fused_projections": attn_keys,
+          "pool_pages": eng.pool_host.n_pages - 1,
+          "decode_weight_bytes": decode_weight_bytes(eng.params),
+          "decoder_weight_bytes": decode_weight_bytes(
+              eng.params["decoder"]),
+          "launches": counts,
+          "graphs": graphs_replayed(eng, "nemotron int8 serve")})
+    require("wkv" in attn_keys and "wq" in attn_keys
+            and "wqkv" not in attn_keys,
+            f"GQA fuses K and V only: {attn_keys}")
+    require(all(counts[k] > 0 for k in ("monarch_fused_q", "bdmm_q",
+                                        "paged_attention_span_q",
+                                        "quantize_kv_write"))
+            and counts["monarch_fused"] == 0 and counts["bdmm"] == 0
+            and counts["paged_attention_span"] == 0
+            and eng.stats["dense_fallbacks"] == 0,
+            f"the nemotron int8 serve must run B4, B5, B6 and X2 only: "
+            f"{counts}")
+    del eng
+    prof_nq = _profile_serve(cfg_n, params, watch=("bdmm", "paged_span"),
+                             **qopts)
+    emit({"phase": "serve_profile_nemotron_quantized", "options": qopts,
+          **prof_nq})
+    kv_writes_each_step(prof_nq, "nemotron int8", cfg_n.n_layers)
+    for wname, w in prof_nq.items():
+        seen = w["launches_per_step_profiled_vs_counted"]
+        require(all(seen[k][0] > 0 for k in ("monarch_fused_kernel", "bdmm_",
+                                             "paged_span_kernel",
+                                             "kv_store_kernel")),
+                f"nemotron int8 {wname} window: the profiler must show B4, "
+                f"B5, B6 and X2: {seen}")
+    del params
+    torch.cuda.empty_cache()
+    phase_done("3c nemotron serve")
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2105,29 +2495,35 @@ def main() -> int:
     table = (1 + np.arange(Bp * mpp, dtype=np.int32)).reshape(Bp, mpp)
     spans_np = np.array([64, 40, 17, 1], np.int32)
 
-    def mixed_step_on(params, d, kv_dtype=None):
-        """One full-width mixed step on device ``d``: the logits and the
-        pool, both on the CPU."""
-        pool = T.init_paged_pool(cfg32, 1 + Bp * mpp, 16, kv_dtype=kv_dtype,
+    def mixed_step_on(params, d, kv_dtype=None, c=None, record=None):
+        """One full-width mixed step of model ``c`` (default: cfg32) on
+        device ``d``: the logits and the pool, both on the CPU.  With
+        ``record``, the step runs layer by layer (the same operations,
+        :func:`_layered_mixed_step`) and hands each stage to it."""
+        c = c or cfg32
+        pool = T.init_paged_pool(c, 1 + Bp * mpp, 16, kv_dtype=kv_dtype,
                                  device=d)
-        lg, _ = T.paged_mixed_step(
-            params, torch.from_numpy(toks).to(d),
-            torch.zeros(Bp, dtype=torch.int32, device=d),
-            torch.from_numpy(spans_np).to(d), torch.from_numpy(table).to(d),
-            pool, cfg32)
-        return lg[:, :cfg.vocab].float().cpu(), tree_to(pool, "cpu")
+        args = (params, torch.from_numpy(toks).to(d),
+                torch.zeros(Bp, dtype=torch.int32, device=d),
+                torch.from_numpy(spans_np).to(d),
+                torch.from_numpy(table).to(d))
+        if record is None:
+            lg, _ = T.paged_mixed_step(*args, pool, c)
+        else:
+            lg = _layered_mixed_step(*args, pool, c, record)
+        return lg[:, :c.vocab].float().cpu(), tree_to(pool, "cpu")
 
     def logit_err(a, b) -> tuple[float, float]:
         diff = (a - b).abs()
         return float(diff.max() / b.abs().max()), float(diff.max())
 
-    def mixed_step_both(params_by_device, kv_dtype=None):
+    def mixed_step_both(params_by_device, kv_dtype=None, c=None):
         """One full-width mixed step on the card and on the CPU: relative
         and absolute logit error, and both pools (card's first)."""
         lg_card, pool_card = mixed_step_on(params_by_device["cuda"], dev,
-                                           kv_dtype)
+                                           kv_dtype, c)
         lg_cpu, pool_cpu = mixed_step_on(params_by_device["cpu"],
-                                         torch.device("cpu"), kv_dtype)
+                                         torch.device("cpu"), kv_dtype, c)
         require(bool(torch.isfinite(lg_card).all()), "non-finite logits")
         return (*logit_err(lg_card, lg_cpu), (pool_card, pool_cpu), lg_cpu)
 
@@ -2174,13 +2570,13 @@ def main() -> int:
                       for k, v in (kwargs or {}).items()}
             return func(*args, **kwargs)
 
-    def fp64_witness():
+    def fp64_witness(pc, c, record):
         """The same step on the CPU in float64 throughout (params, pool
-        and every float32 on its path widened, :class:`Float64`).  Returns
-        its logits: the card's and the fp32 CPU's distance from them says
-        which side moved when the two disagree."""
+        and every float32 on its path widened, :class:`Float64`), layer
+        by layer.  Returns its logits: the card's and the fp32 CPU's
+        distance from them says which side moved when the two disagree."""
         p64 = tree_map(lambda t: t.double() if t.is_floating_point()
-                       else t, p_cpu)
+                       else t, pc)
         produced: set = set()
 
         class Watch(torch.overrides.TorchFunctionMode):
@@ -2191,15 +2587,14 @@ def main() -> int:
                 return out
 
         with Watch(), Float64():
-            lg64, _ = mixed_step_on(p64, torch.device("cpu"))
+            lg64, _ = mixed_step_on(p64, torch.device("cpu"), c=c,
+                                    record=record)
         require(lg64.dtype == torch.float64
                 and not produced & {torch.float32, torch.bfloat16,
                                     torch.float16},
                 f"the float64 witness step made {sorted(map(str, produced))}")
         return lg64
 
-    lg_card = mixed_step_on(p_gpu, dev)[0]
-    lg64 = fp64_witness()
     # what a reading above the limit would need to be traced to: the
     # weights, each side's logits, the host's CPU and the card's SMs
     cpuinfo = Path("/proc/cpuinfo")
@@ -2207,27 +2602,83 @@ def main() -> int:
                  else [])
     cpu_flags = set(next((ln.split(":", 1)[1].split() for ln in cpu_lines
                           if ln.startswith("flags")), []))
-    emit({"phase": "parity_step", "max_abs_err": abs_err,
-          "max_rel_err": rel, "rel_tol": PARITY_REL_TOL, "finite": True,
-          "max_rel_err_graph_replays": graphed,
-          "vs_fp64_cpu": {
-              "card_rel": logit_err(lg_card.double(), lg64)[0],
-              "cpu_fp32_rel": logit_err(lg_cpu.double(), lg64)[0]},
-          "sources": {
-              "weights_sum": _checksum(p_gpu),
-              "card_logits_sum": float(lg_card.double().sum()),
-              "cpu_logits_sum": float(lg_cpu.double().sum()),
-              "cpu": sorted({ln.split(":", 1)[1].strip() for ln in cpu_lines
-                             if ln.startswith(("vendor_id", "model\t",
-                                               "cpu family"))}),
-              "cpu_isa": sorted(f for f in cpu_flags
-                                if f.startswith(("avx512f", "amx_tile"))),
-              "cpu_capability": torch.backends.cpu.get_cpu_capability(),
-              "cpu_threads": torch.get_num_threads(),
-              "sms": torch.cuda.get_device_properties(0).multi_processor_count}})
-    require(rel <= PARITY_REL_TOL, f"card vs CPU logits differ: rel {rel}")
+
+    def parity_step(c, pg_, pc_, rel, abs_err, lg_cpu, **extra) -> dict:
+        """Phase 4's parity line for model ``c``: the step's logits card vs
+        CPU (``rel``, ``abs_err``, from the step as the engine runs it),
+        each side's distance from the float64 step, and where the two
+        part: the residual stream after the embedding and after each
+        layer, the final norm and the LM head's input (the real positions
+        only), and the logits, card vs CPU and each against float64; the
+        first stage whose card-vs-CPU difference is more than twice the
+        stage's before it; and the CPU's head on the card's head input
+        against the card's logits (the unembedding alone: a matmul on
+        both sides, in other algorithms)."""
+        from repro_torch.models import layers as L
+
+        def recorder(into: dict):
+            def record(name, x):
+                if x.shape[1] == Sp:   # (B, S, d): the real positions
+                    real = (torch.arange(Sp, device=x.device)[None, :]
+                            < torch.from_numpy(spans_np).to(x.device)[:, None])
+                    x = x[real]
+                into[name] = x.float().cpu()
+            return record
+
+        st_card, st_cpu, st_64 = {}, {}, {}
+        lg_card = mixed_step_on(pg_, dev, c=c, record=recorder(st_card))[0]
+        lg_card_direct = mixed_step_on(pg_, dev, c=c)[0]
+        lg_cpu_l = mixed_step_on(pc_, torch.device("cpu"), c=c,
+                                 record=recorder(st_cpu))[0]
+        require(torch.equal(lg_card, lg_card_direct)
+                and torch.equal(lg_cpu_l, lg_cpu),
+                f"{c.name}: the layered step is not the engine's step")
+        lg64 = fp64_witness(pc_, c, recorder(st_64))
+        st_card["logits"], st_cpu["logits"], st_64["logits"] = (
+            lg_card, lg_cpu, lg64)
+        per_layer = _per_layer(st_card, st_cpu, st_64)
+        head_cpu = L.unembed(pc_["embedding"], st_card["head_in"],
+                             c)[:, 0, :c.vocab]
+        line = {"phase": "parity_step", "model": c.name,
+                "layers": c.n_layers, "max_abs_err": abs_err,
+                "max_rel_err": rel, "rel_tol": PARITY_REL_TOL,
+                "finite": True, **extra,
+                "vs_fp64_cpu": {
+                    "card_rel": logit_err(lg_card.double(), lg64)[0],
+                    "cpu_fp32_rel": logit_err(lg_cpu.double(), lg64)[0]},
+                "per_layer": per_layer,
+                "lm_head": {
+                    n: {k: per_layer[k][per_layer["stages"].index(s_)]
+                        for k in ("card_vs_cpu", "card_vs_fp64",
+                                  "cpu_vs_fp64")}
+                    for n, s_ in (("input", "head_in"),
+                                  ("output", "logits"))},
+                "cpu_head_on_card_input_vs_card": _rel(lg_card, head_cpu),
+                "sources": {
+                    "weights_sum": _checksum(pg_),
+                    "card_logits_sum": float(lg_card.double().sum()),
+                    "cpu_logits_sum": float(lg_cpu.double().sum()),
+                    "cpu": sorted({ln.split(":", 1)[1].strip()
+                                   for ln in cpu_lines
+                                   if ln.startswith(("vendor_id", "model\t",
+                                                     "cpu family"))}),
+                    "cpu_isa": sorted(f for f in cpu_flags
+                                      if f.startswith(("avx512f",
+                                                       "amx_tile"))),
+                    "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+                    "cpu_threads": torch.get_num_threads(),
+                    "sms": torch.cuda.get_device_properties(
+                        0).multi_processor_count}}
+        emit(line)
+        require(rel <= PARITY_REL_TOL,
+                f"{c.name}: card vs CPU logits differ: rel {rel}")
+        return line
+
+    parity_step(cfg32, p_gpu, p_cpu, rel, abs_err, lg_cpu,
+                max_rel_err_graph_replays=graphed)
     require(max(graphed) <= PARITY_REL_TOL,
             f"card vs CPU logits differ under graph replay: rel {graphed}")
+    phase_done("4 parity step")
 
     # random weights often decode one token over and over, so beyond token
     # identity every step's logits (rows with a span) are held to the
@@ -2261,20 +2712,31 @@ def main() -> int:
     card_runs: dict = {}   # (phase, trace) -> the card's run, for phase 5
 
     def run_traces(phase: str, engine_kw: dict, exact: bool,
-                   kernels: tuple[str, str]) -> None:
-        """The three traces on the card and on the CPU.  ``exact``: tokens,
-        counters and every step's logits held to the fp32 limits; else
-        greedy tokens at least INT8_KV_TOKEN_AGREEMENT identical."""
-        for tname, (kw, prompts, stagger) in traces.items():
-            outs, stats, seen = {}, {}, {}
+                   kernels: tuple[str, str], model=None, names=None,
+                   sampled: bool = False) -> None:
+        """The traces (``names``, default all three) on the card and on the
+        CPU, of ``model`` (cfg, card params, CPU params; default phase
+        4's).  ``exact``: tokens, counters and every step's logits held to
+        the fp32 limits; else greedy tokens at least
+        INT8_KV_TOKEN_AGREEMENT identical.  ``sampled``: every request
+        samples at SAMPLE_TEMPERATURE from its own seed, the steps run
+        drawing graphs, and a token may differ from the CPU's only at a
+        near tie (:func:`_sampled_flips`), after which the two runs part."""
+        c, pg_, pc_ = model or (cfg32, p_gpu, p_cpu)
+        sampling = (SAMPLE_TEMPERATURE, 1000) if sampled else None
+        for tname in names or traces:
+            kw, prompts, stagger = traces[tname]
+            outs, stats, seen, drawn = {}, {}, {}, {}
             for d in ("cuda", "cpu"):
                 step_logits.clear()
+                drawn[d] = {}
                 eng = ContinuousBatchingEngine(
-                    cfg32, p_gpu if d == "cuda" else p_cpu, page_size=16,
+                    c, pg_ if d == "cuda" else pc_, page_size=16,
                     use_paged_kernel=True, device=d, **kw, **engine_kw)
                 reset_launches()
                 reqs = _drive(eng, prompts, stagger, 8,
-                              f"trace {tname} on {d}", step_logits)
+                              f"trace {tname} on {d}", step_logits,
+                              sampling, drawn[d] if sampled else None)
                 eng.pool_host.check_invariants()
                 outs[d] = [list(r.output_tokens) for r in reqs]
                 stats[d] = {k: eng.stats[k] for k in stat_keys}
@@ -2282,10 +2744,15 @@ def main() -> int:
                 if d == "cuda":
                     counts = launches()
                     g = _graphs(eng)
-                    replays = {"captures": g.captures, "replays": g.replays}
-                    card_runs[(phase, tname)] = {
-                        "tokens": outs[d], "logits": seen[d],
-                        "stats": stats[d]}
+                    replays = {"captures": g.captures, "replays": g.replays,
+                               "buckets": g.buckets}
+                    if not sampled and model is None:
+                        card_runs[(phase, tname)] = {
+                            "tokens": outs[d], "logits": seen[d],
+                            "stats": stats[d]}
+            flips = (_sampled_flips(outs["cuda"], outs["cpu"], drawn["cuda"],
+                                    drawn["cpu"], *sampling)
+                     if sampled else [])
             same_steps = len(seen["cuda"]) == len(seen["cpu"]) and all(
                 a.shape == b.shape
                 for a, b in zip(seen["cuda"], seen["cpu"]))
@@ -2294,9 +2761,13 @@ def main() -> int:
             flat = [(a, b) for oa, ob in zip(outs["cuda"], outs["cpu"])
                     for a, b in zip(oa, ob)]
             agree = sum(a == b for a, b in flat) / max(len(flat), 1)
-            emit({"phase": phase, "trace": tname, "cuda": outs["cuda"],
+            emit({"phase": phase, "model": c.name, "layers": c.n_layers,
+                  "trace": tname, "cuda": outs["cuda"],
                   "cpu": outs["cpu"],
                   "identical": outs["cuda"] == outs["cpu"],
+                  **({"temperature": sampling[0], "flips": flips,
+                      "near_tie_flips": sum(f["near_tie"] for f in flips)}
+                     if sampled else {}),
                   "token_agreement": agree,
                   "steps_compared": len(seen["cuda"]),
                   "max_step_rel_err": step_rel,
@@ -2312,7 +2783,14 @@ def main() -> int:
                     + replays["replays"] == stats["cuda"]["mixed_steps"],
                     f"{phase} {tname}: every step after a bucket's first "
                     f"must replay its graph: {replays}")
-            if exact:
+            if sampled:
+                require(any(draw for _, draw in replays["buckets"]),
+                        f"{phase} {tname}: no step replayed a drawing "
+                        f"graph: {replays}")
+                require(all(f["near_tie"] for f in flips),
+                        f"{phase} {tname}: a sampled token differs card vs "
+                        f"CPU beyond a near tie: {flips}")
+            if exact and not flips:
                 require(same_steps, f"{phase} {tname}: card and CPU ran "
                         "other steps")
                 require(outs["cuda"] == outs["cpu"],
@@ -2322,7 +2800,7 @@ def main() -> int:
                 require(step_rel <= PARITY_REL_TOL,
                         f"{phase} {tname}: step logits differ: "
                         f"{step_rel}")
-            else:
+            elif not exact:
                 require(agree >= INT8_KV_TOKEN_AGREEMENT,
                         f"{phase} {tname}: token agreement {agree}")
             if tname == "preemption":
@@ -2335,6 +2813,11 @@ def main() -> int:
 
     run_traces("parity_tokens", {}, True,
                ("monarch_fused", "paged_attention_span"))
+    phase_done("4 greedy traces")
+    # the same traces with every request sampled at a temperature > 0
+    run_traces("parity_tokens_sampled", {}, True,
+               ("monarch_fused", "sample_tokens"), sampled=True)
+    phase_done("4 sampled traces")
 
     # -- 4b. int8 factors (fused QKV), fp32 KV: as exact as fp32 -------------
     q_gpu = prepare_decode_params(p_gpu, cfg32, fuse=True, bits=8)
@@ -2406,6 +2889,24 @@ def main() -> int:
     del pool_card, pool_cpu, pool_n
     run_traces("parity_tokens_int8_kv", qopts, False,
                ("monarch_fused_q", "paged_attention_span_q"))
+    phase_done("4b/4c int8 factors and KV")
+
+    # -- 4d. nemotron-4-15b at full width with the depth cut to 2 layers,
+    # fp32 (the CPU side would otherwise run a 32-layer 15B-wide step): one
+    # mixed step with the per-layer breakdown, and the plain greedy trace,
+    # card vs CPU under the same limits ------------------------------------
+    cfg_n2 = dataclasses.replace(cfg_n, n_layers=2, dtype="float32")
+    pn_gpu = T.init_params(cfg_n2, seed=3, device=dev)
+    pn_cpu = tree_to(pn_gpu, "cpu")
+    rel, abs_err, _, lg_cpu_n = mixed_step_both(
+        {"cuda": pn_gpu, "cpu": pn_cpu}, c=cfg_n2)
+    parity_step(cfg_n2, pn_gpu, pn_cpu, rel, abs_err, lg_cpu_n)
+    phase_done("4d nemotron parity step")
+    run_traces("parity_tokens_nemotron", {}, True, ("monarch_fused", "bdmm"),
+               model=(cfg_n2, pn_gpu, pn_cpu), names=("plain",))
+    del pn_gpu, pn_cpu
+    torch.cuda.empty_cache()
+    phase_done("4d nemotron trace")
 
     # -- 5. tensor parallelism on the one card ------------------------------
     # 5a. B7: the span kernel per rank on its heads of the phase-2 pools;
@@ -2507,6 +3008,8 @@ def main() -> int:
                                 f"err {err}, concat bitwise {same}, "
                                 f"deterministic {again}")
 
+    phase_done("5a B7")
+
     # 5b. the tp = 1 runs on the card the ranks are held to: phase 4's fp32
     # traces and phase 3's bf16 serve, and the traces again with fp32
     # factors over int8 KV pages (phase 4c's had int8 factors, which
@@ -2523,6 +3026,8 @@ def main() -> int:
     p32_sum = _checksum(p_gpu)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
+
+    phase_done("5b tp=1 baselines")
 
     # 5c. TP ranks, one process each, sharing the card over gloo
     jobs = {
@@ -2614,6 +3119,8 @@ def main() -> int:
         ranks[0]["int8_kv"]["traces"][t]["launches"][
             "paged_attention_span_sharded_q"] for t in int8_traces)
 
+    phase_done("5c tp ranks")
+
     # -- summary --------------------------------------------------------------
     kernels = []
     for name in KERNELS:
@@ -2628,7 +3135,7 @@ def main() -> int:
             "library_card_ms": s["library_card_ms"],
             **({"replaces_kind": "jnp compiled by XLA in the jitted step, "
                                  "not Pallas"}
-               if name == "quantize_kv_write" else {})})
+               if name in JNP_KERNELS else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     smi = subprocess.run(

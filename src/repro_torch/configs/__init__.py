@@ -2,9 +2,10 @@
 
 Variants are selected with a suffix, as in ``repro.configs``:
 ``name`` -> Monarch-sparse (paper policy), ``name:dense`` -> dense
-baseline, ``name:mxu`` -> Monarch with 128-aligned blocks.  Only
-gpt2-medium is ported so far; the other architectures come with the
-model families they need.
+baseline, ``name:mxu`` -> Monarch with 128-aligned blocks.  Ported are
+the architectures whose layers the port has (attention stacks: LayerNorm
+or RMSNorm, GELU, SwiGLU or squared-ReLU FFNs, MHA or GQA, RoPE, tied or
+untied embeddings); the others come with the model families they need.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import importlib
 from repro_torch.core.linear import MonarchSpec
 from repro_torch.models.config import ModelConfig
 
-PORTED_ARCHS = ["gpt2-medium"]
+PORTED_ARCHS = ["gpt2-medium", "bert-large-lm", "codeqwen1.5-7b",
+                "minicpm-2b", "nemotron-4-15b"]
 
 
 def _module_name(arch: str) -> str:
@@ -28,7 +30,7 @@ def get_config(name: str) -> ModelConfig:
     else:
         base, variant = name, "paper"
     base = base.replace(".", "_")
-    if base not in PORTED_ARCHS:
+    if _module_name(base) not in {_module_name(a) for a in PORTED_ARCHS}:
         raise NotImplementedError(
             f"arch {base!r} is not ported yet (ported: {PORTED_ARCHS})")
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(base)}")

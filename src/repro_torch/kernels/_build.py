@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Each source ``csrc/<name>.cu`` (a float kernel and its quantized twin,
-two instances of one template; or the int8 KV write) compiles with
+two instances of one template; the int8 KV write; or the token draw)
+compiles with
 ``nvcc`` into its own shared library with a plain C interface, loaded
 with ``ctypes`` — no PyTorch
 headers, so a build takes seconds, not minutes.  Libraries land in
@@ -28,7 +29,7 @@ from typing import Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("monarch", "bdmm", "paged", "kv_write")
+SOURCES = ("monarch", "bdmm", "paged", "kv_write", "sample")
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")  # where the toolkit puts it
 # -Xptxas -v: each kernel's registers and spills, kept in BUILD_LOG
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,7 +43,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = {"monarch_fused": 0, "bdmm": 0, "paged_attention_span": 0,
             "monarch_fused_q": 0, "bdmm_q": 0, "paged_attention_span_q": 0,
             "paged_attention_span_sharded": 0,
-            "paged_attention_span_sharded_q": 0, "quantize_kv_write": 0}
+            "paged_attention_span_sharded_q": 0, "quantize_kv_write": 0,
+            "sample_tokens": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # source -> the compiler's output of its last build in this process

@@ -18,7 +18,14 @@ identical traffic.  What carries over unchanged:
     the device;
   * device-token chaining and a one-step harvest lag: step N+1 is
     dispatched before step N's samples are read back; the read-back
-    (``.cpu()`` at harvest) is the engine's only wait on the device;
+    (``.cpu()`` at harvest) is the engine's only wait on the device (and,
+    on preemption only, the read of the victim's PRNG key);
+  * sampling: greedy at ``temperature <= 0``, else a threefry Gumbel draw
+    bitwise equal to ``jax.random.categorical``'s, one PRNG stream a
+    request from ``PRNGKey(seed)`` (``core.prng``).  Each slot's key lives
+    on the device, filled at admission (``resume_key`` after a preemption)
+    and split on every step; a row that samples keeps the carry.  The
+    draw and the split are one kernel call (``kernels.sample``);
   * deadlines, cancellation, admission-control shedding, and the
     registry-backed ``stats``, lifecycle histograms and trace spans;
   * the kernel-dispatch counters (``kernel_dispatches``,
@@ -36,13 +43,17 @@ identical traffic.  What carries over unchanged:
 Per step the host uploads one packed int32 buffer (span tokens, starts,
 span lengths, flags, fork points, page tables) from pinned memory without
 blocking, so the upload never waits for the device; a step's copy-on-write
-fork list takes the same path.
+fork list, and its admitted slots' temperatures and keys, take the same
+path.
 
 **CUDA graphs** (the counterpart of the reference's ``_mixed_step_jit``):
-on a CUDA device at tp = 1, every step of a span bucket after its first
+on a CUDA device at tp = 1, every step of a bucket -- its span bucket, and
+whether any row may draw at a temperature > 0, which the host knows as the
+reference's ``lax.cond`` decides it on the device -- after its first
 replays one captured graph of the whole step (``serving.step_graphs``):
 the packed buffer lands in the bucket's static input, the chained device
-token is one persistent buffer read and written in place, and the sampled
+token and the slots' keys and temperatures are persistent buffers read
+and written in place, and the sampled
 tokens are cloned out of the graph before the harvest reads them a step
 later.  There is no switch, as the reference always jits.  Under a mesh
 the step stays eager: gloo's collectives run on the host, between the
@@ -77,9 +88,7 @@ replay it.  Under a mesh ``quantize``/``fuse_projections`` raise
 ``NotImplementedError`` (not ported yet).
 
 Not ported yet (they raise ``NotImplementedError``): ``fault_injector``,
-``heartbeat``, snapshot/restore, and sampling at ``temperature > 0`` (the
-reference draws with threefry keys; until those are ported bit-for-bit,
-the port serves greedy decoding only).  The legacy ``ServeEngine`` is not
+``heartbeat`` and snapshot/restore.  The legacy ``ServeEngine`` is not
 ported either.
 """
 
@@ -98,9 +107,11 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device, tree_to
+from repro_torch.core import prng
 from repro_torch.core.quant import (BITS_BY_NAME, KV_DTYPE_BYTES,
                                     kv_page_bytes)
 from repro_torch.kernels.paged import reserve_workspace
+from repro_torch.kernels.sample import sample_tokens
 from repro_torch.models import transformer as T
 from repro_torch.models.decode_path import prepare_decode_params
 from repro_torch.models.config import ModelConfig
@@ -132,46 +143,49 @@ def _bucket(n: int, lo: int = 1) -> int:
     return max(lo, 1 << (n - 1).bit_length())
 
 
-def _greedy_only(temperature: float) -> None:
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampling at temperature > 0 is not ported yet (greedy only)")
-
-
 def _mixed_step(params, pool, cfg: ModelConfig, chunk_tok, tok_dev, use_dev,
-                start, span, pt, wstart, sample_mask, plan=None):
+                start, span, pt, wstart, sample_mask, temps, keys,
+                draw: bool, plan=None):
     """ONE unified engine iteration over the slot batch.
 
     ``chunk_tok`` (B, S) carries host-known span tokens (prefill chunks);
     rows flagged ``use_dev`` are decodes whose single input token is the
     previous step's on-device sample (``tok_dev``), so the dispatch chain
-    never waits on a host read-back.  Rows whose span reaches the end of
-    their known tokens (``sample_mask``) take the greedy token; everyone
-    else keeps their device token.  ``wstart`` (B,) is each row's
-    copy-on-write fork point.  Returns (sampled, new device tokens,
-    logits); the pool is updated in place."""
+    never waits on a host read-back.  Every row's key (``keys`` (B, 2)
+    int32 words) splits into a draw key and a carry (the reference's
+    ``_split_rows``); rows whose span reaches the end of their known
+    tokens (``sample_mask``) take the token drawn at their temperature
+    (``temps``, greedy at <= 0; every row is greedy unless ``draw``, the
+    host's view of the reference's ``lax.cond``) and keep the carry,
+    everyone else keeps their device token and key.  ``wstart`` (B,) is
+    each row's copy-on-write fork point.  Returns (sampled, new device
+    tokens, logits); the pool and ``keys`` are updated in place."""
     tokens = chunk_tok.clone()
     tokens[:, 0] = torch.where(use_dev, tok_dev, chunk_tok[:, 0])
     logits, _ = T.paged_mixed_step(params, tokens, start, span, pt, pool,
                                    cfg, write_start=wstart, plan=plan)
-    sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+    sampled = sample_tokens(logits, temps, keys, sample_mask, draw)
     return sampled, torch.where(sample_mask, sampled, tok_dev), logits
 
 
 def _packed_step(params, pool, cfg: ModelConfig, tok: torch.Tensor,
-                 packed: torch.Tensor, S: int, plan=None):
+                 keys: torch.Tensor, temps: torch.Tensor,
+                 packed: torch.Tensor, bucket: tuple[int, bool], plan=None):
     """:func:`_mixed_step` on one step's packed int32 buffer (``B * S`` span
     tokens, then starts, span lengths, use-device flags, sample flags and
-    fork points, B each, then the (B, MP) page tables), with the chained
-    device token ``tok`` (B,) updated in place: the function each step
-    graph captures, and the eager step.  Returns (sampled, logits)."""
+    fork points, B each, then the (B, MP) page tables) of ``bucket = (S,
+    draw)``, with the chained device token ``tok`` (B,) and the slots'
+    ``keys`` updated in place and their temperatures ``temps`` read: the
+    function each step graph captures, and the eager step.  Returns
+    (sampled, logits)."""
+    S, draw = bucket
     B = tok.shape[0]
     o = B * S
     cols = [packed[o + i * B:o + (i + 1) * B] for i in range(5)]
     sampled, new_tok, logits = _mixed_step(
         params, pool, cfg, packed[:o].view(B, S), tok, cols[2].bool(),
         cols[0], cols[1], packed[o + 5 * B:].view(B, -1), cols[4],
-        cols[3].bool(), plan=plan)
+        cols[3].bool(), temps, keys, draw, plan=plan)
     tok.copy_(new_tok)
     return sampled, logits
 
@@ -320,8 +334,15 @@ class ContinuousBatchingEngine:
 
         S, MP = max_slots, self.max_pages_per_seq
         self.max_slots = S
-        # the chained device token: one buffer, read and written in place
+        # the chained device token: one buffer, read and written in place;
+        # likewise each slot's PRNG key (int32 words) and temperature, set
+        # at admission (a host copy of the temperatures picks the bucket)
         self._tok = torch.zeros((S,), dtype=torch.int32, device=self.device)
+        self._keys = torch.zeros((S, 2), dtype=torch.int32,
+                                 device=self.device)
+        self._temp = torch.zeros((S,), dtype=torch.float32,
+                                 device=self.device)
+        self._temp_host = np.zeros((S,), np.float32)
         # host-side truth of the page tables and COW fork points: uploaded
         # with every step's packed buffer
         self._pt = np.full((S, MP), SINK_PAGE, np.int32)
@@ -332,11 +353,12 @@ class ContinuousBatchingEngine:
         # its rows with a span
         self.step_logits: Optional[torch.Tensor] = None
         self.step_rows = np.zeros((S,), bool)
-        # one step of span bucket S: _step(packed device buffer, S); it holds
-        # no reference to the engine, so that the engine and its graphs'
-        # memory are freed as soon as nothing holds the engine
+        # one step of bucket (S, draw): _step(packed device buffer, bucket);
+        # it holds no reference to the engine, so that the engine and its
+        # graphs' memory are freed as soon as nothing holds the engine
         self._step = functools.partial(_packed_step, self.params, self.pool,
-                                       self.cfg, self._tok, plan=self.plan)
+                                       self.cfg, self._tok, self._keys,
+                                       self._temp, plan=self.plan)
         self.step_graphs: Optional[StepGraphs] = None
         if self.device.type == "cuda" and mesh is None:
             self.step_graphs = StepGraphs(self._step)
@@ -420,7 +442,6 @@ class ContinuousBatchingEngine:
                       on_token=on_token)
         if req.sampling.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        _greedy_only(req.sampling.temperature)
         self._check_fits(req)
         if self.prefix_sharing:
             req.num_cached_tokens = self.pool_host.match_prefix(
@@ -628,6 +649,8 @@ class ContinuousBatchingEngine:
                      ) -> list[tuple[Sequence, int]]:
         spans: list[tuple[Sequence, int]] = []
         cow_ops: list[tuple[int, int]] = []
+        rows: list[int] = []
+        keys: list[np.ndarray] = []
         for req, chunk in admissions:
             try:
                 self.waiting.remove(req)
@@ -669,6 +692,22 @@ class ContinuousBatchingEngine:
             self.running[slot] = seq
             spans.append((seq, chunk))
             self._wstart[slot] = matched
+            rows.append(slot)
+            self._temp_host[slot] = req.sampling.temperature
+            keys.append(np.asarray(req.resume_key, np.uint32)
+                        if req.resume_key is not None
+                        else prng.prng_key(req.sampling.seed).numpy()
+                        .astype(np.uint32))
+        # the admitted slots' temperatures and keys, through the pinned
+        # upload: [slots, temperature bits, key words]
+        n = len(rows)
+        idx = np.asarray(rows, np.int32)
+        dev = self._upload(np.concatenate([
+            idx, self._temp_host[idx].view(np.int32),
+            np.stack(keys).view(np.int32).reshape(-1)]))
+        slots = dev[:n].long()
+        self._temp.index_copy_(0, slots, dev[n:2 * n].view(torch.float32))
+        self._keys.index_copy_(0, slots, dev[2 * n:].view(n, 2))
         if cow_ops:
             # whole-page device copies; rows past the fork point are stale
             # source data, masked by causality until overwritten
@@ -784,10 +823,12 @@ class ContinuousBatchingEngine:
 
         packed = np.concatenate([chunk_tok.reshape(-1), start, span, use_dev,
                                  sample, self._wstart, self._pt.reshape(-1)])
+        bucket = (Sb, bool((self._temp_host[sample > 0] > 0.0).any()))
         if self.step_graphs is not None:
-            sampled, logits = self.step_graphs.run(Sb, packed, self._upload)
+            sampled, logits = self.step_graphs.run(bucket, packed,
+                                                   self._upload)
         else:
-            sampled, logits = self._step(self._upload(packed), Sb)
+            sampled, logits = self._step(self._upload(packed), bucket)
         self.step_logits, self.step_rows = logits, span > 0
         self._pending.append({"sampled": sampled, "slots": harvest,
                               "step": self.step_idx})
@@ -859,9 +900,13 @@ class ContinuousBatchingEngine:
 
     def _preempt(self, seq: Sequence) -> None:
         """Evict a PREFILLING/RUNNING sequence back to WAITING: pages freed,
-        cursor reset (recompute on resume), emitted tokens kept.  The victim
-        rejoins at the FRONT of the queue."""
+        cursor reset (recompute on resume), emitted tokens and the PRNG
+        stream kept.  The victim rejoins at the FRONT of the queue."""
         req = seq.request
+        # the harvest drain ran before any preemption, so the slot's key is
+        # the settled carry (one read from the device, on preemption only)
+        req.resume_key = self._keys[seq.slot].cpu().numpy().view(
+            np.uint32).copy()
         self._evict(seq)
         req.num_computed_tokens = 0
         req.state = RequestState.WAITING

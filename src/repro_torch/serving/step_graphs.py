@@ -1,11 +1,14 @@
 """The engine step as CUDA graphs: the port's counterpart of the
 reference's ``_mixed_step_jit`` (``repro/serving/engine.py:175-180``), which
-compiles a whole engine iteration -- embed, every layer, unembed and the
-greedy sample -- into one program with the pool donated.
+compiles a whole engine iteration -- embed, every layer, unembed, the key
+split and the token draw -- into one program with the pool donated.
 
 The engine's shapes are static within a span bucket (B = ``max_slots``
 rows, S = ``_bucket(max span)`` tokens, a page table ``max_pages_per_seq``
-wide), so :class:`StepGraphs` holds one graph a bucket:
+wide), and whether any row may draw at a temperature > 0 is known on the
+host (the reference decides it with a ``lax.cond``), so a bucket is the
+pair (S, draw) and :class:`StepGraphs` holds one graph a bucket (a greedy
+batch replays a graph without the draw, still with the key split):
 
 * **Capture after the first step.**  A bucket's first step runs eagerly on
   its new static input buffer, and that run IS the step; the bucket is then
@@ -15,8 +18,8 @@ wide), so :class:`StepGraphs` holds one graph a bucket:
   outside the capture).
 * **Replay.**  A later step of the bucket uploads its packed buffer into
   the static one (the engine's pinned ring, ``non_blocking``) and replays.
-  The chained token and the pool are read and written in place, so nothing
-  is rebound.  All graphs share one memory pool and replay strictly in
+  The chained token, the slots' keys and the pool are read and written
+  in place, so nothing is rebound.  All graphs share one memory pool and replay strictly in
   turn on one stream.
 * **Outputs.**  A graph's outputs are static: the next replay of the same
   graph overwrites them.  The sampled tokens are read one step late (the
@@ -83,9 +86,10 @@ class _Bucket:
 
 
 class StepGraphs:
-    """One graph a span bucket over ``step(packed, S) -> (sampled,
+    """One graph a bucket over ``step(packed, bucket) -> (sampled,
     logits)``, the engine step on a packed device buffer (with the chained
-    token updated in place).  ``new_graph`` makes a graph object with
+    token and the keys updated in place); a bucket is any hashable key,
+    the engine's (S, draw).  ``new_graph`` makes a graph object with
     ``capture(fn) -> outputs`` and ``replay()``; by default a
     :class:`CudaStepGraph` in one memory pool shared by every bucket.
 
@@ -99,16 +103,16 @@ class StepGraphs:
             new_graph = lambda: CudaStepGraph(mempool)  # noqa: E731
         self._step = step
         self._new_graph = new_graph
-        self._buckets: dict[int, _Bucket] = {}
+        self._buckets: dict = {}
         self.captures = 0
         self.replays = 0
         self.replay_s = 0.0
 
     @property
-    def buckets(self) -> list[int]:
+    def buckets(self) -> list:
         return sorted(self._buckets)
 
-    def run(self, S: int, packed: np.ndarray,
+    def run(self, S, packed: np.ndarray,
             upload: Callable) -> tuple[torch.Tensor, torch.Tensor]:
         """One step of bucket ``S`` on the host's ``packed`` int32 buffer,
         moved to the card by ``upload(packed, out=None)`` (a new device
@@ -129,7 +133,7 @@ class StepGraphs:
         self.replays += 1
         return b.sampled.clone(), b.logits
 
-    def _capture(self, S: int, buf: torch.Tensor) -> None:
+    def _capture(self, S, buf: torch.Tensor) -> None:
         before = dict(_build.LAUNCHES)
         graph = self._new_graph()
         sampled, logits = graph.capture(lambda: self._step(buf, S))

@@ -160,9 +160,14 @@ def test_cpu_wrappers_count_no_launches():
 
     qc = quantize_monarch({"L": L, "R": R}, bits=4)
     ops.monarch_mm_q(x, qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
+    from repro_torch.kernels.sample import sample_tokens
+
+    sample_tokens(torch.randn(2, 70), torch.tensor([0.0, 0.9]),
+                  torch.zeros(2, 2, dtype=torch.int32),
+                  torch.tensor([True, True]), True)
     assert launches() == {"monarch_fused": 0, "bdmm": 0,
                           "paged_attention_span": 0, "monarch_fused_q": 0,
                           "bdmm_q": 0, "paged_attention_span_q": 0,
                           "paged_attention_span_sharded": 0,
                           "paged_attention_span_sharded_q": 0,
-                          "quantize_kv_write": 0}
+                          "quantize_kv_write": 0, "sample_tokens": 0}

@@ -270,8 +270,13 @@ def test_generate_compat_and_not_ported_options(model):
     out = eng.generate(np.asarray([[1, 2, 3], [4, 5, 6]]),
                        tserving.GenerationConfig(max_new_tokens=3))
     assert tuple(out.shape) == (2, 3)
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2], tserving.SamplingParams(temperature=0.7))
+    # sampling at temperature > 0 is ported: a sampled request now runs
+    req = eng.add_request([1, 2], tserving.SamplingParams(
+        max_new_tokens=3, temperature=0.7, seed=5))
+    eng.run()
+    assert req.finish_reason is tserving.FinishReason.LENGTH
+    assert len(req.output_tokens) == 3
+    assert all(0 <= t < tc.vocab for t in req.output_tokens)
     for kw in ({"fault_injector": object()}, {"heartbeat": object()}):
         with pytest.raises(NotImplementedError):
             tserving.ContinuousBatchingEngine(tc, tp, device="cpu", **kw)

@@ -1,16 +1,18 @@
 """The engine step as CUDA graphs (``serving.step_graphs``), on the CPU.
 
 * The function each graph captures -- ``_packed_step``: the step on its
-  packed int32 buffer, with the chained device token updated in place --
-  is bitwise ``_mixed_step`` over span buckets 1 to 64 and chained steps,
-  float and int8 pools.
+  packed int32 buffer, with the chained device token and the slots' PRNG
+  keys updated in place -- is bitwise ``_mixed_step`` over span buckets 1
+  to 64 and chained steps, float and int8 pools, greedy and drawing.
 * ``StepGraphs``' bookkeeping, through a host stand-in for a CUDA graph
   (a capture runs nothing and leaves the state as it was; a replay
   overwrites the outputs the capture returned): the engine serves the
   same tokens, step logits and pool bitwise as the eager engine, over a
   plain, a preempting and a copy-on-write trace; the first step of a
   bucket is eager and the later ones replay; launch counts read the same
-  per step as eagerly.
+  per step as eagerly.  A bucket is (span bucket, any row drawing): a
+  trace mixing greedy and sampled requests captures both kinds and serves
+  what the eager engine serves.
 * The span kernel's workspace, reserved once for every bucket
   (``kernels.paged.reserve_workspace``), covers each bucket's geometry,
   and each captured graph holds the workspace it launches on, after a
@@ -64,6 +66,16 @@ def _same_pools(a, b) -> bool:
 def test_packed_step_is_mixed_step_bitwise(model, kv_dtype):
     """Three chained steps at each bucket: a prefill row, a decode row fed
     the previous step's device token, an inert row and a shorter span."""
+    _packed_vs_mixed(model, kv_dtype, draw=False)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_packed_step_is_mixed_step_bitwise_when_drawing(model, kv_dtype):
+    """The same steps with the decode row sampling at temperature 0.8."""
+    _packed_vs_mixed(model, kv_dtype, draw=True)
+
+
+def _packed_vs_mixed(model, kv_dtype, draw: bool) -> None:
     cfg, params = model
     B, pg, MP = 4, 16, 16
     pool_a = T.init_paged_pool(cfg, 1 + B * MP, pg, kv_dtype=kv_dtype,
@@ -71,6 +83,10 @@ def test_packed_step_is_mixed_step_bitwise(model, kv_dtype):
     pool_b = tree_map(torch.clone, pool_a)
     tok_a = torch.zeros(B, dtype=torch.int32)
     tok_b = tok_a.clone()
+    keys_a = torch.tensor([[0, 1], [0, 7], [5, -3], [0, 9]],
+                          dtype=torch.int32)
+    keys_b = keys_a.clone()
+    temps = torch.tensor([0.0, 0.8 if draw else 0.0, 0.0, 0.0])
     pt = (1 + np.arange(B * MP, dtype=np.int32)).reshape(B, MP)
     rng = np.random.default_rng(0)
     starts = np.array([0, 100, 0, 37], np.int32)
@@ -84,14 +100,17 @@ def test_packed_step_is_mixed_step_bitwise(model, kv_dtype):
             packed = np.concatenate([chunk.reshape(-1), starts, span, use_dev,
                                      sample, wstart, pt.reshape(-1)])
             sampled_a, logits_a = _packed_step(
-                params, pool_a, cfg, tok_a, torch.from_numpy(packed), S)
+                params, pool_a, cfg, tok_a, keys_a, temps,
+                torch.from_numpy(packed), (S, draw))
             t = torch.from_numpy
             sampled_b, tok_b, logits_b = _mixed_step(
                 params, pool_b, cfg, t(chunk), tok_b, t(use_dev).bool(),
-                t(starts), t(span), t(pt), t(wstart), t(sample).bool())
+                t(starts), t(span), t(pt), t(wstart), t(sample).bool(),
+                temps, keys_b, draw)
             assert torch.equal(sampled_a, sampled_b)
             assert torch.equal(logits_a, logits_b)
             assert torch.equal(tok_a, tok_b)
+            assert torch.equal(keys_a, keys_b)
             starts = (starts + span) % (MP * pg - 64)
     assert _same_pools(pool_a, pool_b)
 
@@ -123,7 +142,7 @@ class _HostGraph:
 def _with_host_graphs(eng):
     eng.step_graphs = StepGraphs(
         eng._step, new_graph=lambda: _HostGraph(
-            lambda: _leaves(eng.pool) + [eng._tok]))
+            lambda: _leaves(eng.pool) + [eng._tok, eng._keys]))
     return eng
 
 
@@ -274,3 +293,45 @@ def test_graphs_need_a_card(model, monkeypatch):
     eng = ContinuousBatchingEngine(cfg, params, max_len=32, page_size=8,
                                    device="cpu")
     assert eng.step_graphs is None
+
+
+def test_greedy_and_drawing_batches_replay_their_own_graphs(model):
+    """Greedy and sampled requests in one trace: a batch whose sampling
+    rows are all greedy replays a graph without the draw, one with a row
+    at temperature > 0 a graph with it, at the same span bucket; tokens,
+    step logits and keys are the eager engine's."""
+    cfg, params = model
+    rng = np.random.default_rng(3)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (5, 17, 9, 30)]
+    out = {}
+    for graphs in (False, True):
+        eng = ContinuousBatchingEngine(cfg, params, page_size=8,
+                                       device="cpu", use_paged_kernel=True,
+                                       max_slots=4, max_len=96,
+                                       chunk_size=16)
+        if graphs:
+            _with_host_graphs(eng)
+        reqs, logits, steps = [], [], 0
+        while prompts[len(reqs):] or eng.has_work():
+            if len(reqs) < len(prompts) and steps % 4 == 0:
+                i = len(reqs)
+                reqs.append(eng.add_request(prompts[i], SamplingParams(
+                    max_new_tokens=6, temperature=0.8 * (i % 2), seed=i)))
+            before = eng.stats["mixed_steps"]
+            eng.step()
+            if eng.stats["mixed_steps"] > before:
+                logits.append(eng.step_logits[torch.from_numpy(
+                    eng.step_rows)].clone())
+            steps += 1
+            assert steps < 300
+        out[graphs] = ([r.output_tokens for r in reqs], logits,
+                       eng._keys.clone(), eng)
+    toks_e, lg_e, keys_e, _ = out[False]
+    toks_g, lg_g, keys_g, graphed = out[True]
+    assert toks_g == toks_e
+    assert all(torch.equal(a, b) for a, b in zip(lg_g, lg_e))
+    assert torch.equal(keys_g, keys_e)
+    g = graphed.step_graphs
+    kinds = {S: {d for s, d in g.buckets if s == S} for S, _ in g.buckets}
+    assert {True, False} in kinds.values()
+    assert g.captures == len(g.buckets) and g.replays > 0
