@@ -79,6 +79,23 @@ Phases, each printed as one JSON object per line:
               serve (B1, B2 staged, B3) and an int8 serve (int8 factors,
               K and V fused, int8 KV pages: B4, B5, B6, X2), each with its
               replays torch.equal to eager steps and a profiled window
+  3d. paper   the paper's pipeline: gpt2-medium:dense (fp32, seed 0, full
+              width) D2S-converted on the card (core/d2s.py: q, k, v, o,
+              w1, w2) and on the CPU from the same dense tensors, every
+              matrix within D2S_REL_TOL card vs CPU, with the card's
+              seconds; the converted model served (B1, B3, X3, graphs)
+              with the HBM cost model's calibration; the same serve under
+              a step-latency budget of the median decode step measured,
+              on the card and on the CPU from the card's factors: the same
+              greedy tokens and prefill chunks; on the card again with
+              that budget over the calibration's scale; layer 0's converted
+              wq pair mapped (SparseMap, DenseMap) and emulated on the
+              card's crossbars in float64 (cim/functional.py) against B1
+              on 8 rows; one dense nemotron-4-15b layer projected card vs
+              CPU; the float serves of phases 3 and 3c priced by the HBM
+              cost model (the H100's data-sheet rates) and the CIM cost
+              model, each engine's calibration printed; and
+              ``python -m repro_torch.examples.quickstart`` on the card
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
@@ -94,7 +111,10 @@ Phases, each printed as one JSON object per line:
               int8 factors; and with int8 factors and int8 KV pages (stored
               pages and scales after one step, and token agreement); then
               nemotron-4-15b at full width cut to 2 layers: one step (with
-              its per-layer breakdown) and a greedy trace
+              its per-layer breakdown, and layer 0 op by op through B3,
+              B1 and B2's two stages: each op card vs CPU, each side
+              against float64, and each op alone on the card's inputs)
+              and a greedy trace
   5. tp       tensor parallelism on the one card: B7, the span kernel per
               rank on its heads of the phase-2 pools (tp 2 and 4, float and
               int8 pages), against its plain version and, concatenated,
@@ -119,6 +139,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -151,6 +172,21 @@ PARITY_REL_TOL = 1e-5
 # on the logits (H100 SXM); the limit leaves a factor 10 over it.
 INT8_KV_SCALE_REL_TOL = 1e-5
 INT8_KV_STEP_REL_TOL = 3e-2
+# D2S projection card vs CPU (phase 3d): each matrix's monarch_to_dense,
+# Frobenius distance relative to ||M||.  Both sides take the leading
+# triples in float64 (core/d2s.py) and round the factors to fp32, so they
+# differ by that rounding (~1e-7); an fp32 SVD would differ by ~1e-5 at
+# 32 x 32 slices that nearly tie
+D2S_REL_TOL = 1e-5
+# the CPU side of the nemotron-4-15b layer's D2S check: every 16th row of
+# (p x s) slices of each matrix (the slices project independently)
+D2S_NEMOTRON_CPU_EVERY = 16
+# the parameterized matmuls D2S converts (paper Fig. 2b)
+D2S_MATMULS = ("wq", "wk", "wv", "wo", "w1", "w2")
+# the H100 SXM's data-sheet rates that the HBM cost model prices a step
+# with (phase 3d): memory GB/s, and the bf16 tensor-core peak in GFLOP/s
+HBM_GBPS = HBM_BYTES_PER_S / 1e9
+BF16_GFLOPS = BF16_FLOPS_PER_S / 1e9
 # greedy tokens over whole traces with int8 KV: the reference's own bar
 # for int8 pages (tests/test_kv_quant.py:352)
 INT8_KV_TOKEN_AGREEMENT = 0.95
@@ -604,6 +640,73 @@ def _layered_mixed_step(params, tokens, start, span_len, page_table, pool,
     return L.unembed(params["embedding"], xl, cfg)[:, 0]
 
 
+def _layer0_ops(p, x, pages, start, span_len, page_table, cfg, window,
+                op) -> "torch.Tensor":
+    """``transformer.attn_block_apply`` on a paged cache, op by op (the
+    same operations, bitwise), each run as ``op(name, fn, *args)``, which
+    returns ``fn(*args)``: the norms, each projection (B1), RoPE, the paged
+    attention with its page write (B3; the write goes to a copy of
+    ``pages``, so that ``args`` stay the op's input), the residual adds,
+    and the FFN pair as its two B2 stages each (``ops.monarch_mm``'s staged
+    branch), with the squared ReLU between.  For a stack without biases or
+    QK norm, with a squared-ReLU FFN whose Monarch factors take the staged
+    branch: nemotron-4-15b's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.linear import linear_apply
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import layers as L
+
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dtype = x.dtype
+
+    def lin(w, a):
+        return linear_apply(w, a, backend=cfg.monarch.backend)
+
+    def norm(w, a):
+        return L.norm_apply(w, a, cfg.norm_type)
+
+    def rope(a, pos):
+        return L.rope(a, pos, cfg.rope_theta)
+
+    def attend(q, k, v, kp, vp, pt, pos, sl):
+        cache = {"k_pages": kp.clone(), "v_pages": vp.clone()}
+        return L._paged_attend(q, k, v, cache, pt, pos, cfg, window, dtype,
+                               span_len=sl)[0]
+
+    def stage1(a, w):
+        k, _, pp = w.shape
+        return K.bdmm(a.reshape(-1, k * pp).contiguous().view(-1, k, pp), w)
+
+    def stage2(u, w):
+        return K.bdmm(u.transpose(-1, -2), w)
+
+    def staged(name, w, a):
+        q, s = w["R"].shape[:2]
+        u = op(f"{name} stage 1 (B2)", stage1, a, w["L"])
+        y = op(f"{name} stage 2 (B2)", stage2, u, w["R"])
+        return y.reshape(-1, q * s).reshape(*a.shape[:-1], q * s)
+
+    at, ff = p["attn"], p["ffn"]
+    h = op("ln1", norm, p["ln1"], x)
+    q = op("wq (B1)", lin, at["wq"], h).reshape(B, S, H, hd)
+    k = op("wk (B1)", lin, at["wk"], h).reshape(B, S, KV, hd)
+    v = op("wv (B1)", lin, at["wv"], h).reshape(B, S, KV, hd)
+    pos = start.reshape(B, 1).long() + torch.arange(S, device=x.device)[None]
+    q = op("rope q", rope, q, pos)
+    k = op("rope k", rope, k, pos)
+    o = op("attention (B3)", attend, q, k, v, pages["k_pages"],
+           pages["v_pages"], page_table, pos, span_len)
+    a = op("wo (B1)", lin, at["wo"], o.reshape(B, S, H * hd))
+    x = op("residual 1", torch.add, x, a)
+    h = op("ln2", norm, p["ln2"], x)
+    u = staged("w1", ff["w1"], h)
+    r = op("squared ReLU", lambda t: torch.square(F.relu(t)), u)
+    return op("residual 2", torch.add, x, staged("w2", ff["w2"], r))
+
+
 def _rel(a, b) -> float:
     """max |a - b| over max |b|, in float64."""
     a, b = a.double(), b.double()
@@ -624,6 +727,42 @@ def _per_layer(card: dict, cpu: dict, fp64: dict) -> dict:
                                   None),
             "first_jump": next((names[i] for i in range(1, len(r))
                                 if 0 < 2 * r[i - 1] < r[i]), None)}
+
+
+def _leaf(tree, path: str):
+    """The node of a nested dict at a ``keystr`` path (``['a']['b']``)."""
+    for key in path[2:-2].split("']['"):
+        tree = tree[key]
+    return tree
+
+
+def _timed_steps(eng) -> list:
+    """The step numbers of the calibration's pairs: the last ``n`` steps
+    that dispatched a span (a step that only harvests prices nothing)."""
+    n = eng.calibration.n
+    return sorted({s for s, _, _, _ in eng.dispatch_log})[-n:] if n else []
+
+
+def _chunks(eng) -> list:
+    """(step of the calibration's run, tokens) of each prefill chunk."""
+    steps = _timed_steps(eng)
+    at = {s: i for i, s in enumerate(steps)}
+    return [(at[s], n) for s, _, kind, n in eng.dispatch_log
+            if kind != "decode" and s in at]
+
+
+def _calibration(eng) -> dict:
+    """A cost model's calibration over a serve's timed steps (n, the
+    least-squares scale of measured over predicted ns, the residuals'
+    spread), with the median measured ns of the steps that ran decode
+    spans only."""
+    cal = eng.calibration
+    prefill = {s for s, _, kind, _ in eng.dispatch_log if kind != "decode"}
+    decode_ns = sorted(m for s, m in zip(_timed_steps(eng), cal.measured)
+                       if s not in prefill)
+    return {**cal.report(), "decode_steps": len(decode_ns),
+            "median_decode_step_ns": (decode_ns[len(decode_ns) // 2]
+                                      if decode_ns else None)}
 
 
 def _checksum(tree) -> float:
@@ -657,6 +796,9 @@ def _serve(cfg, params, n_req, lo, hi, new_tokens, seed, **engine_kw):
     eng = ContinuousBatchingEngine(cfg, params, **{**SERVE_KW, **engine_kw})
     _record_inputs(eng)
     _warm(eng, cfg.vocab)
+    # a cost model's calibration pairs: the timed run's steps only
+    eng.calibration.predicted.clear()
+    eng.calibration.measured.clear()
     prompts = _serve_prompts(cfg.vocab, n_req, lo, hi, seed)
     torch.cuda.synchronize()
     reset_launches()
@@ -2485,6 +2627,288 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("3c nemotron serve")
 
+    # -- 3d. the paper's pipeline: D2S at full width on the card against the
+    # CPU, the converted model served, one nemotron-4-15b layer projected,
+    # the CIM emulation of a mapped pair against B1, the two cost models'
+    # calibration and a budgeted serve, and the quickstart -----------------
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.cim import functional as CF
+    from repro_torch.cim import mapping as CM
+    from repro_torch.cim import scheduling as CS
+    from repro_torch.core.d2s import convert_tree, project_to_monarch
+    from repro_torch.core.monarch import MonarchDims, stage_specs
+    from repro_torch.serving import (CIMCostModel, HBMCostModel,
+                                     SamplingParams, SchedulerConfig)
+
+    def d2s_select(path, leaf) -> bool:
+        return any(s in path for s in D2S_MATMULS)
+
+    def d2s_both(params, what: str, every: int = 1):
+        """``convert_tree`` over ``params`` on the card (timed; a leaf's
+        seconds run from its select call to the next leaf's) and on the CPU
+        from the same dense tensors: with ``every`` > 1 the CPU projects
+        only every ``every``-th row of (p x s) slices (ki) of each matrix,
+        a Monarch matrix of its own, against the card's factors of those
+        rows.  Every matrix's ``monarch_to_dense`` card vs CPU (Frobenius
+        distance relative to ||M||) and the worst (p x s) slice (relative
+        to the slice's own norm).  Returns the card's converted tree."""
+        stamps: list = []
+
+        def timed_select(path, leaf):
+            torch.cuda.synchronize()
+            stamps.append((path, time.perf_counter()))
+            return d2s_select(path, leaf)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv, reps = convert_tree(params, timed_select)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        stamps.append(("", time.perf_counter()))
+        names = {r.name for r in reps}
+        per_leaf = {p: stamps[i + 1][1] - t
+                    for i, (p, t) in enumerate(stamps[:-1]) if p in names}
+        t0 = time.perf_counter()
+        if every == 1:
+            conv_cpu, reps_cpu = convert_tree(tree_to(params, "cpu"),
+                                              d2s_select)
+            require([(r.name, r.dims) for r in reps]
+                    == [(r.name, r.dims) for r in reps_cpu],
+                    f"{what}: card and CPU converted other matrices")
+            for r, rc in zip(reps, reps_cpu):
+                require(abs(r.rel_error - rc.rel_error) <= D2S_REL_TOL,
+                        f"{what} {r.name}: projection errors differ card "
+                        f"vs CPU: {r.rel_error} / {rc.rel_error}")
+        else:
+            conv_cpu = {}
+            for r in reps:
+                w = _leaf(params, r.name).cpu()
+                lead, (k, q, p) = w.shape[:-2], r.dims.l_shape
+                rows = w.reshape(*lead, k, p, r.dout)[..., ::every, :, :]
+                sub = MonarchDims(rows.shape[-3] * p, r.dout,
+                                  rows.shape[-3], q)
+                Lc, Rc = project_to_monarch(
+                    rows.reshape(*lead, sub.din, r.dout), sub)
+                conv_cpu[r.name] = {"L": Lc, "R": Rc}
+        t_cpu = time.perf_counter() - t0
+        worst_m, worst_s = {"rel": -1.0}, {"rel_to_slice": -1.0}
+        n_mat = dense = sparse = 0
+        for r in reps:
+            fa = _leaf(conv, r.name)
+            fb = (_leaf(conv_cpu, r.name) if every == 1
+                  else conv_cpu[r.name])
+            n = int(np.prod(fa["L"].shape[:-3]))
+            n_mat += n
+            dense += n * r.dense_params
+            sparse += n * r.sparse_params
+            La, Ra = fa["L"][..., ::every, :, :], fa["R"][..., ::every]
+            m_a = monarch_to_dense(La, Ra).double()
+            m_b = monarch_to_dense(fb["L"].to(dev), fb["R"].to(dev)).double()
+            k, q, p, s = La.shape[-3], r.dims.q, r.dims.p, r.dims.s
+            d4 = (m_a - m_b).reshape(n, k, p, q, s)
+            m4 = m_b.reshape(n, k, p, q, s)
+            per = d4.square().sum((1, 2, 3, 4)).sqrt() / m4.square().sum(
+                (1, 2, 3, 4)).sqrt()
+            i = int(per.argmax())
+            if float(per[i]) > worst_m["rel"]:
+                worst_m = {"matrix": r.name, "layer": i, "rel": float(per[i])}
+            sl = d4.square().sum((2, 4)).sqrt() / m4.square().sum(
+                (2, 4)).sqrt().clamp(min=1e-30)                 # (n, k, q)
+            j = int(sl.argmax())
+            if float(sl.max()) > worst_s["rel_to_slice"]:
+                li, ki, qi = np.unravel_index(j, tuple(sl.shape))
+                worst_s = {"matrix": r.name, "layer": int(li),
+                           "slice": [int(ki) * every, int(qi)],
+                           "p_s": [p, s], "rel_to_slice": float(sl.max())}
+            del m_a, m_b, d4, m4
+        worst_err = max(reps, key=lambda r: r.rel_error)
+        emit({"phase": "d2s", "model": what, "matmuls": n_mat,
+              "leaves": len(reps), "dense_params": dense,
+              "sparse_params": sparse, "compression": dense / sparse,
+              "worst_rel_error": {"matrix": worst_err.name,
+                                  "rel_error": worst_err.rel_error},
+              "card_seconds": t_card, "cpu_seconds": t_cpu,
+              "cpu_slice_rows": f"every {every}",
+              "card_seconds_per_leaf": per_leaf,
+              "slices_per_leaf": {r.name: [r.dims.k * r.dims.q, r.dims.p,
+                                           r.dims.s] for r in reps},
+              "card_vs_cpu": {"worst_matrix": worst_m,
+                              "worst_slice": worst_s},
+              "rel_tol": D2S_REL_TOL})
+        require(worst_m["rel"] <= D2S_REL_TOL,
+                f"{what}: D2S card vs CPU differ: {worst_m}")
+        return conv
+
+    # D2S of gpt2-medium:dense at full width (fp32), card against CPU
+    cfg_d = dataclasses.replace(get_config("gpt2-medium:dense"),
+                                dtype="float32")
+    conv = d2s_both(T.init_params(cfg_d, seed=0, device=dev),
+                    "gpt2-medium:dense")
+    torch.cuda.empty_cache()
+
+    # the converted model served on the card (B1, B3, X3, graphs) with the
+    # HBM cost model's calibration beside it; again under a step-latency
+    # budget of the median decode step that serve measured, on the card
+    # and on the CPU from the card's factors: the same greedy tokens and
+    # the same prefill chunks; and once more on the card only with that
+    # budget in the model's own ns (over the calibration's scale)
+    cfg_dc = dataclasses.replace(cfg_d, monarch=dataclasses.replace(
+        cfg_d.monarch, backend="pallas"))
+    hbm_conv = HBMCostModel.from_params(cfg_dc, conv, bandwidth_gbps=HBM_GBPS,
+                                        compute_gflops=BF16_GFLOPS)
+
+    def d2s_serve(budget: Optional[float] = None, **engine_kw):
+        kw = dict(cost_model=hbm_conv, scheduler_cfg=SchedulerConfig(
+            step_latency_budget_ns=budget), **engine_kw)
+        if engine_kw.get("device") == "cpu":
+            eng = ContinuousBatchingEngine(cfg_dc, conv, **{**SERVE_KW, **kw})
+            reqs = [eng.add_request(p, SamplingParams(max_new_tokens=32))
+                    for p in _serve_prompts(cfg_dc.vocab, 8, 32, 256, 0)]
+            t0 = time.perf_counter()
+            eng.run()
+            dt, counts = time.perf_counter() - t0, None
+        else:
+            eng, reqs, counts, dt, _, _ = serve(cfg_dc, conv, 8, 32, 256, 32,
+                                                seed=0, **kw)
+        out = [list(r.output_tokens) for r in reqs]
+        return eng, out, counts, {
+            "step_latency_budget_ns": budget, "seconds": dt,
+            "tokens_per_s": sum(map(len, out)) / dt,
+            "steps": eng.calibration.n, "chunks": _chunks(eng)}
+
+    eng, _, counts, plain = d2s_serve()
+    cal_conv = _calibration(eng)
+    emit({"phase": "serve_d2s", "model": "gpt2-medium:dense D2S",
+          "dtype": cfg_dc.dtype, "requests": 8, "new_tokens": 8 * 32,
+          **plain, "dense_fallbacks": eng.stats["dense_fallbacks"],
+          "launches": counts, "graphs": graphs_replayed(eng, "d2s serve"),
+          "calibration_hbm": cal_conv})
+    require(counts["monarch_fused"] > 0 and counts["paged_attention_span"] > 0
+            and counts["sample_tokens"] > 0
+            and eng.stats["dense_fallbacks"] == 0,
+            f"the converted serve must run B1, B3 and X3: {counts}")
+    del eng
+    budget = cal_conv["median_decode_step_ns"]
+    eng, card_tokens, _, card = d2s_serve(budget)
+    del eng
+    eng_c, cpu_tokens, _, cpu = d2s_serve(budget, device="cpu")
+    emit({"phase": "serve_d2s_budgeted", "budget": "median_decode_step",
+          **card, "chunks_as_unbudgeted": card["chunks"] == plain["chunks"],
+          "cpu_seconds": cpu["seconds"], "cpu_steps": cpu["steps"],
+          "cpu_chunks_identical": cpu["chunks"] == card["chunks"],
+          "cpu_tokens_identical": cpu_tokens == card_tokens})
+    require(cpu_tokens == card_tokens,
+            "the converted model's tokens differ card vs CPU")
+    require(cpu["chunks"] == card["chunks"] and cpu["steps"] == card["steps"],
+            "the budgeted serve: the CPU engine planned other chunks")
+    del eng_c
+    eng, _, _, scaled = d2s_serve(budget / cal_conv["scale"])
+    emit({"phase": "serve_d2s_budgeted",
+          "budget": "median_decode_step_over_scale", **scaled,
+          "chunks_as_unbudgeted": scaled["chunks"] == plain["chunks"]})
+    del eng
+    phase_done("3d D2S and the converted serve")
+
+    # the CIM mapping of the converted layer 0 wq pair (SparseMap and
+    # DenseMap), its arrays programmed and the schedule executed in float64
+    # on the card (cim/functional.py), against B1's fp32 output on 8 rows
+    wq = _leaf(conv, "['decoder']['layers']['attn']['wq']['w']")
+    L0, R0 = wq["L"][0].contiguous(), wq["R"][0].contiguous()
+    dims = make_dims(L0.shape[0] * L0.shape[2], R0.shape[0] * R0.shape[1])
+    x8 = randn(8, dims.din)
+    y_b1 = monarch_fused(x8, L0, R0)
+    weights = {"wq/L": torch.block_diag(*L0.double().transpose(1, 2)),
+               "wq/R": torch.block_diag(*R0.double().transpose(1, 2))}
+    pair = CM.MonarchPair(*stage_specs(dims, name="wq"), name="wq")
+    for strat, mp in (("sparse", CM.map_sparse([pair.L, pair.R], 256)),
+                      ("dense", CM.map_dense_pack([pair], 256))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays = CF.program_arrays(mp, weights)
+        cyc_l = CS.schedule_matmul(mp, "wq/L")
+        cyc_r = CS.schedule_matmul(mp, "wq/R")
+        ys = []
+        for row in x8.double():
+            u = CF.execute_matmul(mp, arrays, cyc_l, {"wq/L": row})["wq/L"]
+            ys.append(CF.execute_matmul(
+                mp, arrays, cyc_r,
+                {"wq/R": u.reshape(dims.k, dims.q).T.reshape(-1)})["wq/R"])
+        y_cim = torch.stack(ys)
+        torch.cuda.synchronize()
+        err, ok = close(y_b1, y_cim, "float32")
+        exact = float((y_cim - x8.double() @ monarch_to_dense(
+            L0.double(), R0.double())).abs().max())
+        emit({"phase": "cim_vs_b1", "matmul": "gpt2-medium layer 0 wq (D2S)",
+              "strategy": strat, "arrays": mp.n_arrays,
+              "utilization": mp.utilization,
+              "cycles": [len(cyc_l), len(cyc_r)], "rows": 8,
+              "device": str(arrays[0].device), "max_abs_err": err,
+              "tol": TOL["float32"], "vs_float64_product": exact,
+              "seconds": time.perf_counter() - t0})
+        require(ok and arrays[0].is_cuda,
+                f"CIM {strat} emulation vs B1: err {err}")
+    del conv, wq, L0, R0, weights, arrays
+    torch.cuda.empty_cache()
+
+    # one nemotron-4-15b layer at full width (dense, fp32: the whole model
+    # would be 60 GB), projected on the card; the CPU checks every
+    # D2S_NEMOTRON_CPU_EVERY-th row of slices (the whole layer would take
+    # the CPU ~2 minutes)
+    cfg_nd = dataclasses.replace(get_config("nemotron-4-15b:dense"),
+                                 n_layers=1, dtype="float32")
+    gen_nd = torch.Generator(device=dev)
+    gen_nd.manual_seed(0)
+    d2s_both({"decoder": T.decoder_stack_init(gen_nd, cfg_nd)},
+             "nemotron-4-15b:dense, 1 layer", every=D2S_NEMOTRON_CPU_EVERY)
+    torch.cuda.empty_cache()
+
+    # the float serves of phases 3 and 3c priced by each cost model: the
+    # engine's calibration (measured over predicted ns a step)
+    for c, n_req in ((cfg, 8), (cfg_n, NEMOTRON_REQUESTS)):
+        params = T.init_params(c, seed=0, device=dev)
+        for mname, cm in (
+                ("hbm", HBMCostModel.from_params(
+                    c, params, bandwidth_gbps=HBM_GBPS,
+                    compute_gflops=BF16_GFLOPS)),
+                ("cim", CIMCostModel(c, strategy="sparse"))):
+            eng, reqs, counts, dt, out, _ = serve(c, params, n_req, 32, 256,
+                                                  32, seed=0, cost_model=cm)
+            cal = _calibration(eng)
+            emit({"phase": "calibration", "model": c.name, "dtype": c.dtype,
+                  "cost_model": mname, "tokens_per_s": out / dt,
+                  "steps": eng.stats["mixed_steps"], **cal})
+            require(cal["n"] > 0 and cal["decode_steps"] > 0
+                    and math.isfinite(cal["scale"]) and cal["scale"] > 0,
+                    f"{c.name} {mname}: no calibration: {cal}")
+            del eng
+        del params
+        torch.cuda.empty_cache()
+
+    # the quickstart, as ``python -m repro_torch.examples.quickstart`` runs
+    # it, on the card
+    buf = io.StringIO()
+    argv, sys.argv = sys.argv, ["quickstart"]
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("repro_torch.examples.quickstart",
+                             run_name="__main__", alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = argv
+    lines = buf.getvalue().strip().splitlines()
+    emit({"phase": "quickstart", "exit": code, "last": lines[-6:],
+          "launches": {k: v for k, v in launches().items() if v}})
+    require(code == 0 and lines[-1] == "quickstart OK"
+            and launches()["monarch_fused"] > 0,
+            "the quickstart did not end with 'quickstart OK' through B1")
+    phase_done("3d CIM, calibration and quickstart")
+
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_gpu = T.init_params(cfg32, seed=3, device=dev)
@@ -2672,6 +3096,106 @@ def main() -> int:
         emit(line)
         require(rel <= PARITY_REL_TOL,
                 f"{c.name}: card vs CPU logits differ: rel {rel}")
+        return line
+
+    def parity_ops(c, pg_, pc_) -> dict:
+        """Layer 0 of model ``c``'s step (the engine's: B3 attention) op by
+        op (:func:`_layer0_ops`), from the embedding of phase 4's tokens,
+        on the card, on the CPU in fp32 and in float64 (real positions
+        only): each op's output card vs CPU, and each side against
+        float64; then each op alone, the card's own inputs run on the CPU
+        in fp32 and in float64 against the card's output.  Names the first
+        op where the card is more than twice as far from float64 as the
+        CPU, in the step and alone."""
+        from repro_torch.models import layers as L
+
+        ff = T.layer_params(pc_["decoder"]["layers"], 0)["ffn"]
+        require(c.ffn_type == "relu2" and not c.qk_norm
+                and not any("b" in w for w in ff.values())
+                and not any(fused_fits(tuple(w["L"].shape),
+                                       tuple(w["R"].shape))
+                            for w in ff.values()),
+                f"{c.name}: the op breakdown is written for a biasless "
+                "squared-ReLU stack with a staged FFN pair")
+        win = T.layer_windows(c)[0]
+        real = (torch.arange(Sp)[None, :]
+                < torch.from_numpy(spans_np)[:, None])
+
+        def rows(t):
+            t = t.detach().cpu().double()
+            return t.reshape(Bp, Sp, -1)[real]
+
+        def to(tree, d, double=False):
+            if isinstance(tree, dict):
+                return {k: to(v, d, double) for k, v in tree.items()}
+            if isinstance(tree, tuple):
+                return tuple(to(v, d, double) for v in tree)
+            if isinstance(tree, torch.Tensor):
+                t = tree.to(d)
+                return t.double() if double and t.is_floating_point() else t
+            return tree
+
+        def run(params, d, double=False):
+            """(records, layer-0 output, attn_block_apply's output)."""
+            recs: list = []
+
+            def op(name, fn, *args):
+                out = fn(*args)
+                recs.append((name, fn, args, out))
+                return out
+
+            lp = to(T.layer_params(params["decoder"]["layers"], 0), d, double)
+            x = L.embed(params["embedding"], torch.from_numpy(toks).to(d), c,
+                        T._dtype(c)).to(d)
+            pool = T.init_paged_pool(c, 1 + Bp * mpp, 16, device=d)
+            ins = (torch.zeros(Bp, dtype=torch.int32, device=d),
+                   torch.from_numpy(spans_np).to(d),
+                   torch.from_numpy(table).to(d))
+            if double:
+                x, pool = x.double(), tree_map(lambda t: t.double(), pool)
+            pages = T.layer_params(pool["layers"], 0)["attn"]
+            y = _layer0_ops(lp, x, pages, *ins, c, win, op)
+            y_block = T.attn_block_apply(
+                lp, x, c, window=win, cache=T.layer_params(pool["layers"], 0),
+                pos=ins[0], page_table=ins[2], span_len=ins[1])
+            return recs, y, y_block
+
+        card, y_card, yb_card = run(pg_, dev)
+        cpu, y_cpu, yb_cpu = run(pc_, torch.device("cpu"))
+        with Float64():
+            fp64, y64, _ = run(pc_, torch.device("cpu"), double=True)
+        require(torch.equal(y_card, yb_card) and torch.equal(y_cpu, yb_cpu),
+                f"{c.name}: the op-by-op layer 0 is not attn_block_apply's")
+        ops_ = []
+        for (name, fn, args, out), (_, _, _, o_cpu), (_, _, _, o64) in zip(
+                card, cpu, fp64):
+            a32 = to(args, torch.device("cpu"))
+            alone32 = fn(*a32)
+            with Float64():
+                alone64 = fn(*to(args, torch.device("cpu"), double=True))
+            oc = rows(out)
+            ops_.append({
+                "op": name, "card_vs_cpu": _rel(oc, rows(o_cpu)),
+                "card_vs_fp64": _rel(oc, rows(o64)),
+                "cpu_vs_fp64": _rel(rows(o_cpu), rows(o64)),
+                "alone": {"cpu_fp32_vs_card": _rel(oc, rows(alone32)),
+                          "card_vs_fp64": _rel(oc, rows(alone64)),
+                          "cpu_fp32_vs_fp64": _rel(rows(alone32),
+                                                   rows(alone64))}})
+
+        def first(get) -> Optional[str]:
+            return next((o["op"] for o in ops_
+                         if get(o)[0] > 2 * get(o)[1]), None)
+
+        line = {"phase": "parity_ops", "model": c.name, "layer": 0,
+                "T": Bp * Sp, "real_rows": int(real.sum()),
+                "attention": "B3 (paged_attention_span)", "ops": ops_,
+                "first_card_2x_farther_from_fp64": first(
+                    lambda o: (o["card_vs_fp64"], o["cpu_vs_fp64"])),
+                "first_card_2x_farther_alone": first(
+                    lambda o: (o["alone"]["card_vs_fp64"],
+                               o["alone"]["cpu_fp32_vs_fp64"]))}
+        emit(line)
         return line
 
     parity_step(cfg32, p_gpu, p_cpu, rel, abs_err, lg_cpu,
@@ -2901,6 +3425,8 @@ def main() -> int:
     rel, abs_err, _, lg_cpu_n = mixed_step_both(
         {"cuda": pn_gpu, "cpu": pn_cpu}, c=cfg_n2)
     parity_step(cfg_n2, pn_gpu, pn_cpu, rel, abs_err, lg_cpu_n)
+    parity_ops(dataclasses.replace(cfg_n2, paged_kernel=True), pn_gpu,
+               pn_cpu)
     phase_done("4d nemotron parity step")
     run_traces("parity_tokens_nemotron", {}, True, ("monarch_fused", "bdmm"),
                model=(cfg_n2, pn_gpu, pn_cpu), names=("plain",))

@@ -1,7 +1,7 @@
 """BERT-large-shaped LM (paper model): 24L d=1024 16H d_ff=4096
 vocab=30522.  The reference uses it in its D2S examples and kernel
 benches; its CIM simulator has its own encoder workload description
-(``repro.cim.workload``), not ported yet."""
+(``repro_torch.cim.workload.bert_large``)."""
 
 from repro_torch.core.linear import MonarchSpec
 from repro_torch.models.config import ModelConfig

@@ -181,12 +181,13 @@ def monarch_multiply(x: torch.Tensor, L: torch.Tensor,
 
 def monarch_to_dense(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """Materialize the dense (din, dout) matrix represented by (L, R):
-    W[(ki*p + pi), (qi*s + si)] = L[ki, qi, pi] * R[qi, si, ki]."""
-    k, q, p = L.shape
-    _, s, _ = R.shape
+    W[(ki*p + pi), (qi*s + si)] = L[ki, qi, pi] * R[qi, si, ki].  Leading
+    axes of stacked factors (..., k, q, p) stay: (..., din, dout)."""
+    *lead, k, q, p = L.shape
+    s = R.shape[-2]
     dt = _promote(L, R)
-    w4 = torch.einsum("kqp,qsk->kpqs", L.to(dt), R.to(dt))
-    return w4.reshape(k * p, q * s)
+    w4 = torch.einsum("...kqp,...qsk->...kpqs", L.to(dt), R.to(dt))
+    return w4.reshape(*lead, k * p, q * s)
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +215,45 @@ def init_monarch(
     return {"L": L.to(dtype), "R": R.to(dtype)}
 
 
+# ---------------------------------------------------------------------------
+# Block-structure description consumed by the CIM mapper
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDiagSpec:
+    """Shape-only description of one block-diagonal factor, as seen by the
+    CIM mapping layer (repro_torch.cim.mapping): ``nblocks`` blocks, each
+    ``rows x cols`` (rows = crossbar wordlines = input dim of the block)."""
+
+    nblocks: int
+    rows: int
+    cols: int
+    name: str = ""
+
+    @property
+    def nnz(self) -> int:
+        return self.nblocks * self.rows * self.cols
+
+    @property
+    def total_rows(self) -> int:
+        return self.nblocks * self.rows
+
+    @property
+    def total_cols(self) -> int:
+        return self.nblocks * self.cols
+
+
+def stage_specs(dims: MonarchDims, name: str = "") -> tuple[BlockDiagSpec, BlockDiagSpec]:
+    """The two block-diagonal factors of a Monarch matmul as mapper specs."""
+    l_spec = BlockDiagSpec(dims.k, dims.p, dims.q, name=f"{name}/L")
+    r_spec = BlockDiagSpec(dims.q, dims.k, dims.s, name=f"{name}/R")
+    return l_spec, r_spec
+
+
 __all__ = [
     "MonarchDims",
+    "BlockDiagSpec",
     "blockdiag_multiply",
     "monarch_multiply",
     "monarch_to_dense",
@@ -224,4 +262,5 @@ __all__ = [
     "paper_dims",
     "mxu_dims",
     "closest_divisor",
+    "stage_specs",
 ]

@@ -5,7 +5,10 @@ The host side — request lifecycle, pool, scheduler, metrics, tracing — is
 a copy of ``repro.serving``'s jax-free modules, so both packages plan the
 same steps for the same traffic.  The device side is the port's own:
 ``engine.ContinuousBatchingEngine`` runs each iteration as one mixed
-forward through ``models.transformer.paged_mixed_step``.
+forward through ``models.transformer.paged_mixed_step``.  The scheduler's
+two step-pricing models, ``HBMCostModel`` (a weight-streaming roofline)
+and ``CIMCostModel`` (the paper's CIM simulator, ``repro_torch.cim``), are
+the reference's.
 """
 
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: F401
@@ -17,7 +20,8 @@ from repro_torch.serving.metrics import (Calibration,  # noqa: F401
 from repro_torch.serving.request import (FinishReason, Request,  # noqa: F401
                                          RequestState, SamplingParams,
                                          Sequence)
-from repro_torch.serving.scheduler import (CostModel,  # noqa: F401
+from repro_torch.serving.scheduler import (CIMCostModel,  # noqa: F401
+                                           CostModel, HBMCostModel,
                                            IterationScheduler,
                                            SchedulerConfig, StepPlan)
 from repro_torch.serving.tracing import (NULL_TRACER,  # noqa: F401

@@ -38,11 +38,30 @@ neither).  Preemption also
 fires when nothing at all could be scheduled (liveness): the victim's
 pages let the highest-priority stalled sequence make progress.
 
-The scheduler prices a step through any object that implements the
-``CostModel`` protocol.  The reference's two models (``HBMCostModel``, a
-weight-streaming roofline, and ``CIMCostModel``, the paper's CIM
-simulator) are not ported yet; without a cost model the latency budget is
-off and the plan is the same as the reference's under the same inputs.
+Two cost models ship:
+
+``HBMCostModel`` — the classic weight-streaming roofline: one step reads
+every weight byte once (amortized over the whole batch) plus each
+sequence's KV history, so marginal decode cost per extra sequence is tiny
+and the scheduler batches as wide as it can.  Prefill pays the weight pass
+plus per-token compute, so longer chunks genuinely cost more and the
+latency budget binds on chunk size.
+
+``CIMCostModel`` — prices the step with the paper's CIM simulator
+(``cim.simulator.simulate`` over ``cim.workload.decode_workload``): weights
+are *stationary* in the arrays, so there is no weight-read amortization —
+each token bit-serially streams its activations through the same DAC/ADC
+cycles and per-step latency grows ~linearly with the tokens in the step.
+Under a latency SLO this makes the CIM scheduler interleave *smaller*
+prefill chunks into the decode batch than the HBM heuristic would — batch
+composition driven by simulated per-token latency/energy, which is exactly
+the knob the paper's framework exposes.
+
+Both are copies of the reference's, with every default, and price a step
+as the reference's do (``simulate`` is ``repro_torch.cim``'s copy of the
+simulator); neither holds a preset of a particular card: a caller passes
+its device's rates (``bandwidth_gbps``, ``compute_gflops``).  Without a
+cost model the latency budget is off.
 """
 
 from __future__ import annotations
@@ -86,6 +105,256 @@ class CostModel(Protocol):
         """Predicted energy of prefilling ``n_tokens``, with the same
         cached-token discount as ``prefill_ns`` (0 if not modeled)."""
         ...
+
+
+def tp_allreduce_bytes_per_token(cfg, tp: int) -> float:
+    """Ring all-reduce traffic one shard moves per token at tensor
+    parallelism ``tp``: two partial-sum reductions per layer (the attention
+    output projection and the Monarch stage-2 contraction, both sharded on
+    their contraction dim by the ``sharding/params.py`` Megatron-pair
+    rules), each a ``d_model``-wide fp32 ring all-reduce costing
+    ``2 * (tp - 1) / tp`` elements sent per element reduced — the software
+    twin of the paper's inter-array reduction bus, which merges per-array
+    partial sums before the next stage."""
+    if tp <= 1:
+        return 0.0
+    return 2.0 * (tp - 1) / tp * cfg.d_model * 4.0 * 2 * cfg.n_layers
+
+
+@dataclasses.dataclass
+class HBMCostModel:
+    """Bytes-moved roofline for a weight-streaming (GPU/HBM) backend.
+
+    Tensor parallelism (``tp`` > 1) divides the per-shard weight stream by
+    ``tp`` and the KV stream by ``kv_shard`` (the KV-head split — equals
+    ``tp`` when it divides ``n_kv_heads``, else 1/replicated, matching
+    ``DeviceKV``), and adds a per-token all-reduce term priced at the
+    reduction-bus bandwidth: each step is as slow as its slowest shard, so
+    the roofline prices ONE shard's bytes plus its collective traffic."""
+
+    n_params: int                 # active parameters per token
+    kv_bytes_per_token: float     # 2 * n_layers * n_kv_heads * hd * dtype
+    bytes_per_param: float = 2.0
+    bandwidth_gbps: float = 400.0
+    compute_gflops: float = 50_000.0   # prefill matmul throughput
+    tp: int = 1                   # model-axis shards (weights / compute)
+    kv_shard: int = 1             # KV-head shards (pool pages)
+    allreduce_bytes_per_token: float = 0.0
+    reduce_bandwidth_gbps: float = 300.0   # inter-shard reduction bus
+    # kernel-vs-dense attention pricing: the fused paged span kernel DMAs
+    # each page into VMEM exactly once, while the dense-gather fallback
+    # first materializes a contiguous (B, T, KV, hd) copy in HBM —
+    # ``kv_gather_overhead`` is that extra KV traffic as a fraction of the
+    # stream (1.0 = the copy is written and re-read once).  Default 0.0
+    # keeps the historical pricing for every existing caller; the tp bench
+    # sweep sets it to price the shard-mapped kernel's win honestly.
+    paged_kernel: bool = False
+    kv_gather_overhead: float = 0.0
+
+    def _allreduce_ns(self, n_tokens: float) -> float:
+        if self.allreduce_bytes_per_token <= 0.0:
+            return 0.0
+        return (n_tokens * self.allreduce_bytes_per_token
+                / self.reduce_bandwidth_gbps)
+
+    def _kv_factor(self) -> float:
+        return 1.0 if self.paged_kernel else 1.0 + self.kv_gather_overhead
+
+    def decode_step_ns(self, n_seqs: int, avg_ctx: float) -> float:
+        weight_bytes = self.n_params * self.bytes_per_param / self.tp
+        kv_bytes = (n_seqs * avg_ctx * self.kv_bytes_per_token
+                    / self.kv_shard * self._kv_factor())
+        return ((weight_bytes + kv_bytes) / self.bandwidth_gbps
+                + self._allreduce_ns(n_seqs))
+
+    def prefill_ns(self, n_tokens: int, cached_tokens: int = 0) -> float:
+        # one weight pass (amortized over the chunk) + per-token compute:
+        # the cost must grow with the token count or a chunk-size budget
+        # never binds (2 flops per param per token, GFLOP/s == flops/ns).
+        # Cached tokens are prefix-trie hits — their KV already sits in the
+        # pool, so they cost neither the weight pass nor any compute: a
+        # fully-cached chunk is priced at zero (page-table pointer updates)
+        computed = max(n_tokens - cached_tokens, 0)
+        if computed == 0:
+            return 0.0
+        weight_ns = (self.n_params * self.bytes_per_param
+                     / (self.tp * self.bandwidth_gbps))
+        compute_ns = (2.0 * self.n_params * computed
+                      / (self.tp * self.compute_gflops))
+        return weight_ns + compute_ns + self._allreduce_ns(computed)
+
+    def shard_decode_bytes_per_token(self, avg_ctx: float,
+                                     n_seqs: int = 1) -> dict:
+        """What ONE shard reads from its local memory per decoded token —
+        the number the tp sweep in ``BENCH_serving.json`` tracks: weight
+        bytes amortized over the batch and divided ``tp`` ways, KV history
+        bytes divided ``kv_shard`` ways, plus the all-reduce bytes the
+        shard sends (collective traffic, not local HBM — reported
+        separately so the ~Nx local reduction at tp=N stays visible)."""
+        weight = self.n_params * self.bytes_per_param / (
+            self.tp * max(n_seqs, 1))
+        kv = avg_ctx * self.kv_bytes_per_token / self.kv_shard
+        return {"weight_bytes": weight, "kv_bytes": kv,
+                "weight_kv_bytes": weight + kv,
+                "kv_gather_bytes": kv * (self._kv_factor() - 1.0),
+                "allreduce_bytes": self.allreduce_bytes_per_token}
+
+    def decode_step_nj(self, n_seqs: int, avg_ctx: float) -> float:
+        return 0.0
+
+    def prefill_nj(self, n_tokens: int, cached_tokens: int = 0) -> float:
+        return 0.0
+
+    @classmethod
+    def from_model_config(cls, cfg, kv_dtype: str = "bf16", tp: int = 1,
+                          **kw) -> "HBMCostModel":
+        """``kv_dtype`` prices the KV stream at the serving pool's STORED
+        page width ("fp32" | "bf16" | "int8"): decoding against an int8
+        pool gathers a quarter of the fp32 bytes per context token, so the
+        roofline admits wider batches / longer contexts before the KV term
+        dominates the weight pass.  Default bf16 preserves the historical
+        2 bytes/KV-element pricing.  ``tp`` prices a tensor-parallel engine:
+        weights split ``tp`` ways, KV split ``kv_shard`` ways (``tp`` when
+        it divides ``n_kv_heads``, else replicated — the ``DeviceKV`` rule),
+        and the two per-layer partial-sum all-reduces priced on the
+        reduction bus."""
+        from repro_torch.cim.workload import decode_kv_bytes_per_token
+        from repro_torch.core.quant import KV_DTYPE_BYTES
+
+        kvb = decode_kv_bytes_per_token(
+            cfg, kv_bits=int(8 * KV_DTYPE_BYTES[kv_dtype]))
+        if tp > 1:
+            kw.setdefault("kv_shard",
+                          tp if cfg.n_kv_heads % tp == 0 else 1)
+            kw.setdefault("allreduce_bytes_per_token",
+                          tp_allreduce_bytes_per_token(cfg, tp))
+        return cls(n_params=cfg.active_param_count(),
+                   kv_bytes_per_token=kvb, tp=tp, **kw)
+
+    @classmethod
+    def from_params(cls, cfg, params, **kw) -> "HBMCostModel":
+        """Price weight traffic by the ACTUAL parameter tree's dtypes, so a
+        quantized (int8 / packed-int4) decode path admits wider batches: the
+        per-step weight read is the compressed footprint, not 4 bytes/param.
+        ``bytes_per_param`` = total tree bytes / modeled param count (scales
+        and fp32 residue like norms/embedding keep it honest).  Forward
+        ``kv_dtype=`` to additionally price the KV stream at the pool's
+        stored page width."""
+        from repro_torch.core.quant import tree_weight_bytes
+
+        bpp = tree_weight_bytes(params) / max(cfg.param_count(), 1)
+        return cls.from_model_config(cfg, bytes_per_param=bpp, **kw)
+
+
+class CIMCostModel:
+    """Step cost from the paper's CIM simulator (Table-I composition).
+
+    ``per_token_ns``/``per_token_nj`` come from one ``simulate`` call over
+    the model's decode workload under the chosen mapping strategy; decoding
+    ``n`` sequences costs ``n x`` that (weights-stationary arrays process
+    each sequence's bit-serial activation stream in turn), plus a DPU term
+    for the non-parameterized attention matmuls that grows with context.
+
+    ``tp`` > 1 models ``tp`` parallel array groups each holding 1/tp of
+    every projection's block-rows (the paper's per-array residency): the
+    bit-serial stream time divides by ``tp``, the DPU's KV stream divides
+    by ``kv_shard``, and partial sums cross the inter-array reduction bus
+    (``reduce_bus_gbps``) twice per layer.
+    """
+
+    def __init__(self, model_cfg, strategy: str = "sparse",
+                 cim_cfg=None, seq_len: int = 512,
+                 attn_dpu_ns_per_key: float = 0.05,
+                 weight_bits: int = 8, fused_proj: bool = False,
+                 kv_bits: int = 32, tp: int = 1,
+                 reduce_bus_gbps: float = 128.0,
+                 paged_kernel: bool = False,
+                 kv_gather_overhead: float = 0.0):
+        import dataclasses as _dc
+
+        from repro_torch.cim.simulator import simulate
+        from repro_torch.cim.spec import CIMConfig
+        from repro_torch.cim.workload import (decode_kv_bytes_per_token,
+                                              decode_workload)
+
+        self.strategy = strategy
+        cfg = cim_cfg or CIMConfig()
+        # weight precision <-> ADC resolution (cim/spec.py): lower-precision
+        # cells never need a finer conversion than their own bit width
+        if weight_bits < cfg.weight_bits:
+            cfg = _dc.replace(cfg, weight_bits=weight_bits)
+        self._cfg = cfg
+        desc = decode_workload(model_cfg, seq_len=seq_len,
+                               fused_proj=fused_proj)
+        r = simulate(desc, strategy, self._cfg)
+        self.per_token_ns = r.latency_ns_per_token
+        self.per_token_nj = r.energy_nj_per_token
+        # the DPU runs the non-parameterized attention matmuls off-array: its
+        # per-key time tracks the bytes it streams from the paged KV pool,
+        # so an int8 pool (kv_bits=8) clocks a quarter of the fp32 movement
+        # (decode_kv_bytes_per_token is the shared pricing convention)
+        self.kv_bits = kv_bits
+        width_ratio = (decode_kv_bytes_per_token(model_cfg, kv_bits)
+                       / decode_kv_bytes_per_token(model_cfg, 32))
+        self.attn_dpu_ns_per_key = attn_dpu_ns_per_key * width_ratio
+        # tensor parallelism: tp array groups stream concurrently, the DPU
+        # scans only its local KV heads, partial sums ride the reduction bus
+        self.model_cfg = model_cfg
+        self.weight_bits = weight_bits
+        self.tp = max(int(tp), 1)
+        self.kv_shard = (self.tp if self.tp > 1
+                         and model_cfg.n_kv_heads % self.tp == 0 else 1)
+        self.reduce_bus_gbps = reduce_bus_gbps
+        self.allreduce_bytes_per_token = tp_allreduce_bytes_per_token(
+            model_cfg, self.tp)
+        self.per_token_ns = (self.per_token_ns / self.tp
+                             + self.allreduce_bytes_per_token
+                             / self.reduce_bus_gbps)
+        self.attn_dpu_ns_per_key /= self.kv_shard
+        # kernel-vs-dense pricing, mirroring HBMCostModel: the dense-gather
+        # fallback streams the gathered KV copy through the DPU once more
+        self.paged_kernel = paged_kernel
+        self.kv_gather_overhead = kv_gather_overhead
+        if not paged_kernel:
+            self.attn_dpu_ns_per_key *= 1.0 + kv_gather_overhead
+
+    def decode_step_ns(self, n_seqs: int, avg_ctx: float) -> float:
+        attn = self.attn_dpu_ns_per_key * avg_ctx
+        return n_seqs * (self.per_token_ns + attn)
+
+    def prefill_ns(self, n_tokens: int, cached_tokens: int = 0) -> float:
+        # cached tokens never stream through the DAC/ADC arrays — a prefix
+        # hit costs zero bit-serial cycles, only page-table pointer updates
+        return max(n_tokens - cached_tokens, 0) * self.per_token_ns
+
+    def shard_decode_bytes_per_token(self, avg_ctx: float,
+                                     n_seqs: int = 1) -> dict:
+        """One array group's local traffic per decoded token, mirroring
+        ``HBMCostModel.shard_decode_bytes_per_token`` so the bench's tp
+        sweep can compare both backends on the same axes: weight bytes at
+        the stored cell precision split ``tp`` ways, DPU-streamed KV bytes
+        split ``kv_shard`` ways, reduction-bus bytes reported alongside."""
+        from repro_torch.cim.workload import decode_kv_bytes_per_token
+
+        weight = (self.model_cfg.active_param_count()
+                  * self.weight_bits / 8.0) / (self.tp * max(n_seqs, 1))
+        kv = (avg_ctx * decode_kv_bytes_per_token(self.model_cfg,
+                                                  self.kv_bits)
+              / self.kv_shard)
+        gather = (0.0 if self.paged_kernel
+                  else kv * self.kv_gather_overhead)
+        return {"weight_bytes": weight, "kv_bytes": kv,
+                "weight_kv_bytes": weight + kv,
+                "kv_gather_bytes": gather,
+                "allreduce_bytes": self.allreduce_bytes_per_token}
+
+    def decode_step_nj(self, n_seqs: int, avg_ctx: float) -> float:
+        return n_seqs * self.per_token_nj
+
+    def prefill_nj(self, n_tokens: int, cached_tokens: int = 0) -> float:
+        # CIM prices every token streamed through the arrays, prefill or
+        # decode alike — chunk composition shows up in energy, not just time
+        return max(n_tokens - cached_tokens, 0) * self.per_token_nj
 
 
 def _common_prefix(a, b) -> int:
@@ -440,4 +709,5 @@ class IterationScheduler:
         return (lat, nrg)
 
 
-__all__ = ["CostModel", "SchedulerConfig", "StepPlan", "IterationScheduler"]
+__all__ = ["CostModel", "HBMCostModel", "CIMCostModel", "SchedulerConfig",
+           "StepPlan", "IterationScheduler"]

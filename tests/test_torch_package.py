@@ -39,7 +39,12 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert "repro_torch.kernels.paged" in mods and len(mods) > 20
     assert {"repro_torch.launch.mesh", "repro_torch.sharding.api",
             "repro_torch.sharding.params",
-            "repro_torch.serving.device_kv"} <= set(mods)
+            "repro_torch.serving.device_kv", "repro_torch.core.d2s",
+            "repro_torch.core.permutations",
+            "repro_torch.examples.quickstart"} <= set(mods)
+    assert {f"repro_torch.cim.{m}" for m in (
+        "spec", "mapping", "scheduling", "cost", "workload", "simulator",
+        "dse", "functional")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
