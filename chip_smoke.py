@@ -96,6 +96,31 @@ Phases, each printed as one JSON object per line:
               cost model (the H100's data-sheet rates) and the CIM cost
               model, each engine's calibration printed; and
               ``python -m repro_torch.examples.quickstart`` on the card
+  3e. ft      fault-tolerant serving of gpt2-medium at full width (bf16,
+              seed 0, phase 3's geometry, 768 MiB pool and 8-request
+              trace; odd requests sampled at 0.8): snapshots with prefill
+              in flight (step 2) and decoding (step 12), full and host
+              state only, saved under ``build/`` and continued by a new
+              engine through ``restore_latest`` (float; then int8
+              factors, fused QKV and int8 KV: B4, B6, X2), each with the
+              uninterrupted run's tokens and launches a step, its bytes,
+              save and restore seconds and the restored engine's graphs;
+              a seeded ``FaultInjector.random_schedule`` (pool
+              exhaustion, dispatch failure, clock skew, straggle,
+              heartbeat silence) with the recovery invariants after every
+              step and the unfaulted tokens for every request it did not
+              abort; crashes before and after the harvest recovered by an
+              ``EngineSupervisor`` from a snapshot published every 4 steps;
+              two replicas behind the affinity router (a single engine's
+              tokens, affinity hits), replica 1 killed with a published
+              snapshot and without one, the degraded fleet's v2 snapshot
+              restored, a poison request quarantined after two kills,
+              ``scale_to(3)`` then ``scale_to(1)``, the fleet invariants
+              every step; readings: tokens/s of 1 and 2 replicas at a
+              load of 32 requests from the 4 families (64 new tokens
+              each, every replica's slots full), timed 1, 2, 2, 1 after a
+              warm-up load, both fleets to the same tokens, and the card's
+              peak memory of each fleet
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
@@ -114,7 +139,9 @@ Phases, each printed as one JSON object per line:
               its per-layer breakdown, and layer 0 op by op through B3,
               B1 and B2's two stages: each op card vs CPU, each side
               against float64, and each op alone on the card's inputs)
-              and a greedy trace
+              and a greedy trace; a snapshot of the fp32 plain trace
+              after 3 steps taken on the card and continued on the CPU,
+              and the reverse, each with the uninterrupted card tokens
   5. tp       tensor parallelism on the one card: B7, the span kernel per
               rank on its heads of the phase-2 pools (tp 2 and 4, float and
               int8 pages), against its plain version and, concatenated,
@@ -126,7 +153,11 @@ Phases, each printed as one JSON object per line:
               >= INT8_KV_TOKEN_AGREEMENT of tp = 1's) and phase 3's bf16
               serve (a reading) with a profiled window; every rank runs 24
               B7 launches and 144 local Monarch launches a step, no
-              float-page span launch and no dense fallback
+              float-page span launch and no dense fallback; a tp = 1
+              snapshot of the fp32 plain trace continued by the two ranks
+              (B7), and their tp = 2 snapshot (rank 0 writes the gathered
+              pages) continued at tp = 1 on the card (B3), both with the
+              uninterrupted tp = 1 tokens
 
 It exits non-zero on the first failed check, and when a rank fails.  Each
 phase ends with its seconds (``phase_seconds``).  The
@@ -197,6 +228,22 @@ SERVE_KW = dict(max_slots=8, page_size=16, max_len=1024, chunk_size=64,
 SAMPLE_TEMPERATURE = 0.8
 # requests of the nemotron-4-15b serves (phase 3c), as gpt2-medium's
 NEMOTRON_REQUESTS = 8
+# where phase 3e saves its snapshots (build/ is not committed)
+FT_DIR = ROOT / "build" / "ft_snapshots"
+# the sampled requests' temperature in phase 3e (odd requests; even ones
+# are greedy)
+FT_TEMPERATURE = 0.8
+# FaultInjector(seed).random_schedule(6, max_step=24) with this seed arms
+# all five kinds that need no restore harness: pool exhaustion (steps 6
+# and 23), dispatch failure (7), clock skew (11), straggle (17) and
+# heartbeat silence (22)
+FT_FAULT_SEED = 15
+# the replica readings' load: 32 requests (twice one engine's 8 slots)
+# over 4 prefix families, 64 new tokens each
+FT_LOAD_REQUESTS = 32
+FT_LOAD_NEW_TOKENS = 64
+FT_FAULT_KINDS = ("pool_exhaustion", "dispatch_failure", "clock_skew",
+                  "straggle", "heartbeat_silence")
 
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
            "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
@@ -928,6 +975,480 @@ def _cow_window(cfg, params, **engine_kw) -> dict:
     return out
 
 
+# -- phase 3e: fault-tolerant serving --------------------------------------
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ft_trace(vocab: int, deadline: tuple = (), seed: int = 0,
+              new_tokens: int = 32) -> list:
+    """Phase 3's eight requests (prompts of 32 to 256 tokens from
+    ``seed``), ``new_tokens`` each: odd requests sample at FT_TEMPERATURE
+    from seed 1000 + i, even ones are greedy; the requests in
+    ``deadline`` carry a 600 s deadline.  [(prompt, SamplingParams)]."""
+    from repro_torch.serving import SamplingParams
+
+    return [(p, SamplingParams(
+        max_new_tokens=new_tokens,
+        temperature=FT_TEMPERATURE if i % 2 else 0.0, seed=1000 + i,
+        deadline_s=600.0 if i in deadline else None))
+        for i, p in enumerate(_serve_prompts(vocab, 8, 32, 256, seed))]
+
+
+def _ft_serve(eng, done: dict, what: str, check=None, trace=(),
+              every: int = 0, steps: Optional[int] = None) -> list:
+    """Add ``trace``'s requests, all at once (``every`` 0) or one every
+    ``every`` steps (a family's leader commits its prefix before the next
+    member arrives), and step ``eng`` to the end, or for ``steps`` steps:
+    every finished request's (tokens, finish reason) into ``done`` by id
+    (a request reported again must bring the same tokens), ``check(eng)``
+    after every step.  Returns the requests added."""
+    reqs, n, pending = [], 0, list(trace)
+    while (pending or eng.has_work()) and (steps is None or n < steps):
+        while pending and (every == 0 or n % every == 0):
+            p, sp = pending.pop(0)
+            reqs.append(eng.add_request(p, sp))
+            if every:
+                break
+        for r in eng.step():
+            tok = list(r.output_tokens)
+            prev = done.get(r.req_id)
+            require(prev is None or prev[0] == tok,
+                    f"request {r.req_id} reported twice with other tokens")
+            done[r.req_id] = (tok, r.finish_reason.value)
+        if check is not None:
+            check(eng)
+        n += 1
+        require(n < 3000, f"{what} did not finish")
+    return reqs
+
+
+def _per_step(counts: dict, steps: int) -> dict:
+    return {k: v / steps for k, v in counts.items() if v}
+
+
+def _nongeometry(kw: dict) -> dict:
+    from repro_torch.serving.snapshot import GEOMETRY_KEYS
+
+    return {k: v for k, v in kw.items() if k not in GEOMETRY_KEYS}
+
+
+def _ft_uninterrupted(cfg, params, trace, dev, **kw) -> dict:
+    """The trace served to the end by one engine, all requests at once:
+    tokens by request, launches a step, graphs."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(cfg, params, **{**SERVE_KW, **kw})
+    done: dict = {}
+    _sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = _ft_serve(eng, done, "the uninterrupted serve", trace=trace)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    steps = eng.stats["mixed_steps"]
+    return {"tokens": [done[r.req_id][0] for r in reqs],
+            "reasons": [done[r.req_id][1] for r in reqs],
+            "steps": steps, "seconds": dt,
+            "per_step": _per_step(launches(), steps),
+            "graphs": _graph_stats(eng)}
+
+
+def _ft_restore(cfg, params, trace, base: dict, at: int, include_kv: bool,
+                where: Path, dev, **kw) -> dict:
+    """Serve ``trace`` for ``at`` steps, ``save_snapshot`` it under
+    ``where`` (full, or host state only), drop the engine,
+    ``restore_latest`` a new one and serve to the end: its tokens must be
+    ``base``'s, and so must its launches a step."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving import ContinuousBatchingEngine, RequestState
+
+    eng = ContinuousBatchingEngine(cfg, params, **{**SERVE_KW, **kw})
+    done: dict = {}
+    reqs = _ft_serve(eng, done, "the serve to its snapshot", trace=trace,
+                     steps=at)
+    prefilling = sum(s.request.state is RequestState.PREFILLING
+                     for s in eng.running.values())
+    decoding = sum(s.request.state is RequestState.RUNNING
+                   for s in eng.running.values())
+    shutil.rmtree(where, ignore_errors=True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    snap = eng.save_snapshot(where, include_kv=include_kv)
+    t_save = time.perf_counter() - t0
+    step_dir = where / f"step_{snap['step_idx']:08d}"
+    n_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    del eng, snap
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new = ContinuousBatchingEngine.restore_latest(
+        where, cfg, params, **_nongeometry({**SERVE_KW, **kw}))
+    _sync(dev)
+    t_restore = time.perf_counter() - t0
+    reset_launches()
+    _ft_serve(new, done, "the restored serve")
+    steps = new.stats["mixed_steps"]
+    per_step = _per_step(launches(), steps)
+    tokens = [done[r.req_id][0] for r in reqs]
+    shutil.rmtree(where)
+    out = {"at_step": at, "include_kv": include_kv,
+           "prefilling_at_snapshot": prefilling,
+           "decoding_at_snapshot": decoding,
+           "snapshot_bytes": n_bytes, "save_seconds": t_save,
+           "restore_seconds": t_restore, "steps_after_restore": steps,
+           "restored_graphs": _graph_stats(new),
+           "launches_per_step": per_step,
+           "tokens_identical": tokens == base["tokens"],
+           "launches_per_step_identical": per_step == base["per_step"]}
+    require(out["tokens_identical"],
+            f"restore at step {at} (include_kv={include_kv}): tokens differ "
+            f"from the uninterrupted run: {tokens} vs {base['tokens']}")
+    require(out["launches_per_step_identical"],
+            f"restore at step {at}: launches a step {per_step} differ from "
+            f"the uninterrupted engine's {base['per_step']}")
+    return out
+
+
+def _ft_faults(cfg, params, base: dict, dev, **kw) -> dict:
+    """The seeded random fault schedule (no crashes) over the trace, the
+    recovery invariants after every step: every request but the two whose
+    deadline the clock skew expires serves ``base``'s tokens."""
+    from repro_torch.ft.coordinator import EngineSupervisor
+    from repro_torch.serving import (ContinuousBatchingEngine, FaultInjector,
+                                     assert_recovery_invariants)
+
+    fi = FaultInjector(seed=FT_FAULT_SEED).random_schedule(6, max_step=24)
+    sup = EngineSupervisor(timeout_s=60.0)
+    eng = ContinuousBatchingEngine(cfg, params, fault_injector=fi,
+                                   **{**SERVE_KW, **kw})
+    sup.attach(eng)
+    done: dict = {}
+    t0 = time.perf_counter()
+    reqs = _ft_serve(eng, done, "the faulted serve",
+                     assert_recovery_invariants,
+                     trace=_ft_trace(cfg.vocab, deadline=(6, 7)))
+    steps = eng.step_idx
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    fi.release_all(eng)
+    assert_recovery_invariants(eng)
+    fired = {k for _, k, _ in fi.log}
+    kept = [i for i, r in enumerate(reqs)
+            if done[r.req_id][1] in ("length", "eos")]
+    out = {"schedule": sorted((e.step, e.kind) for e in fi.events),
+           "log": [list(e) for e in fi.log], "steps": steps, "seconds": dt,
+           "reasons": [done[r.req_id][1] for r in reqs],
+           "stats": {k: eng.stats[k] for k in (
+               "dispatch_failures", "preemptions", "timeouts",
+               "mixed_steps")},
+           "heartbeat_silenced": eng.heartbeat is None,
+           "supervisor_sees_silence": sup.engine_failed(
+               now=sup.heartbeat._last[sup.rank] + 61.0),
+           "tokens_identical": all(
+               done[reqs[i].req_id][0] == base["tokens"][i] for i in kept)}
+    require(set(FT_FAULT_KINDS) <= fired,
+            f"the fault schedule fired only {sorted(fired)}")
+    require(out["reasons"][6:] == ["timeout", "timeout"]
+            and len(kept) == 6,
+            f"the clock skew must time out requests 6 and 7 alone: "
+            f"{out['reasons']}")
+    require(eng.stats["dispatch_failures"] == 1
+            and eng.stats["preemptions"] > 0,
+            f"the faulted serve recovered nothing: {out['stats']}")
+    require(out["heartbeat_silenced"] and out["supervisor_sees_silence"],
+            "heartbeat silence went unseen")
+    require(out["tokens_identical"],
+            "a request the faults did not abort lost its unfaulted tokens")
+    return out
+
+
+def _ft_crashes(cfg, params, base: dict, dev, **kw) -> dict:
+    """Crashes before and after the harvest, each recovered by an
+    EngineSupervisor from the snapshot it was last published (every 4
+    steps): every request serves ``base``'s tokens."""
+    from repro_torch.ft.coordinator import EngineSupervisor
+    from repro_torch.serving import (ContinuousBatchingEngine, FaultInjector,
+                                     SimulatedCrash,
+                                     assert_recovery_invariants)
+
+    fi = FaultInjector(seed=0).schedule(7, "crash_before_harvest") \
+        .schedule(18, "crash_after_harvest")
+    sup = EngineSupervisor(timeout_s=60.0)
+    eng = ContinuousBatchingEngine(cfg, params, fault_injector=fi,
+                                   **{**SERVE_KW, **kw})
+    sup.attach(eng)
+    reqs = [eng.add_request(p, sp) for p, sp in _ft_trace(cfg.vocab)]
+    done: dict = {}
+    recoveries, publish_s, steps = [], [], 0
+    while eng.has_work():
+        if eng.step_idx % 4 == 0:
+            t0 = time.perf_counter()
+            sup.publish(eng.snapshot())
+            publish_s.append(time.perf_counter() - t0)
+        try:
+            _ft_serve(eng, done, "the crashing serve",
+                      assert_recovery_invariants, steps=1)
+        except SimulatedCrash as e:
+            crashed_at = eng.step_idx
+            t0 = time.perf_counter()
+            eng = sup.recover(cfg, params, fault_injector=fi,
+                              **_nongeometry({**SERVE_KW, **kw}))
+            _sync(dev)
+            recoveries.append({"kind": e.kind, "crashed_at_step": crashed_at,
+                               "restored_step": eng.step_idx,
+                               "seconds": time.perf_counter() - t0})
+        steps += 1
+        require(steps < 2000, "the crashing serve did not finish")
+    tokens = [done[r.req_id][0] for r in reqs]
+    out = {"log": [list(e) for e in fi.log], "recoveries": recoveries,
+           "publishes": len(publish_s), "publish_seconds": publish_s,
+           "tokens_identical": tokens == base["tokens"]}
+    require([r["kind"] for r in recoveries]
+            == ["crash_before_harvest", "crash_after_harvest"],
+            f"the crashes did not both fire: {recoveries}")
+    require(out["tokens_identical"],
+            "the crash-recovered serve's tokens differ from the "
+            "uninterrupted run")
+    return out
+
+
+def _ft_family_trace(vocab: int, seed: int, n: int = 8,
+                     new_tokens: int = 16,
+                     tails_seed: Optional[int] = None) -> list:
+    """``n`` requests over 4 shared-prefix families (a 48-token stem and a
+    16- to 64-token tail each; the stems from ``seed``, the tails from
+    ``tails_seed`` where given), odd ones sampled at FT_TEMPERATURE."""
+    import numpy as np
+
+    from repro_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    stems = [list(rng.integers(0, vocab, 48)) for _ in range(4)]
+    if tails_seed is not None:
+        rng = np.random.default_rng(tails_seed)
+    return [(np.asarray(stems[i % 4] + list(rng.integers(
+        0, vocab, int(rng.integers(16, 65))))), SamplingParams(
+        max_new_tokens=new_tokens,
+        temperature=FT_TEMPERATURE if i % 2 else 0.0, seed=2000 + i))
+        for i in range(n)]
+
+
+def _arm_crash(rep, kind: str = "crash_before_harvest"):
+    """A SimulatedCrash on one replica at its next step."""
+    from repro_torch.serving import FaultInjector
+
+    rep.faults = FaultInjector(seed=0).schedule(rep.step_idx + 1, kind)
+
+
+def _ft_replicas(cfg, params, dev, **kw) -> dict:
+    """Two replicas behind the affinity router on the one card: tokens of
+    a single engine, affinity hits; replica 1 killed once with a published
+    snapshot (failover in place) and once without (migration), its fleet's
+    v2 snapshot restored while it is DOWN; a poison request quarantined
+    after two kills; scale_to(3) then scale_to(1); the fleet invariants
+    after every step.  Readings: tokens/s of 1 and 2 replicas at a load
+    that fills every slot, and the card's peak memory of each."""
+    import torch
+
+    from repro_torch.serving import (ContinuousBatchingEngine, ReplicaHealth,
+                                     ReplicatedEngine,
+                                     assert_fleet_invariants)
+
+    ekw = {**SERVE_KW, **kw}
+    check = assert_fleet_invariants
+    trace = _ft_family_trace(cfg.vocab, seed=5)
+    single = ContinuousBatchingEngine(cfg, params, **ekw)
+    done: dict = {}
+    reqs = _ft_serve(single, done, "the single engine", trace=trace,
+                     every=2)
+    base = [done[r.req_id][0] for r in reqs]
+    del single
+    out: dict = {}
+
+    def tokens_of(reqs, done):
+        return [done[r.req_id][0] for r in reqs]
+
+    # affinity: the same tokens, families routed together
+    fleet = ReplicatedEngine(cfg, params, n_replicas=2, routing="affinity",
+                             **ekw)
+    done = {}
+    reqs = _ft_serve(fleet, done, "the affinity fleet", check, trace=trace,
+                     every=2)
+    router = fleet.stats()["router"]
+    out["affinity"] = {
+        "tokens_identical": tokens_of(reqs, done) == base,
+        "owners": [fleet.stats()["replicas"][i]["finished"]
+                   for i in range(2)],
+        "router": router}
+    require(out["affinity"]["tokens_identical"],
+            "two replicas' tokens differ from a single engine's")
+    require(router["router.affinity_hits"] > 0,
+            f"the affinity router hit no prefix: {router}")
+    del fleet
+
+    # replica 1 killed mid-trace: with a published snapshot, and without
+    for mode in ("snapshot", "migration"):
+        fleet = ReplicatedEngine(cfg, params, n_replicas=2,
+                                 routing="affinity", **ekw)
+        done = {}
+        reqs = _ft_serve(fleet, done, f"the {mode} fleet", check,
+                         trace=trace, every=2, steps=2 * len(trace))
+        if mode == "snapshot":
+            t0 = time.perf_counter()
+            fleet.publish_snapshots()
+            publish_s = time.perf_counter() - t0
+        _ft_serve(fleet, done, f"the {mode} fleet", check, steps=2)
+        require(fleet.replicas[1].has_work(),
+                f"{mode}: replica 1 has no work to lose")
+        _arm_crash(fleet.replicas[1])
+        t0 = time.perf_counter()
+        _ft_serve(fleet, done, f"the {mode} fleet", check, steps=1)
+        _sync(dev)
+        fail_s = time.perf_counter() - t0
+        r = fleet.stats()["router"]
+        line = {"failover_step_seconds": fail_s,
+                "health": fleet.stats()["health"],
+                "down_cause": fleet.down_cause(1), "router": dict(r)}
+        if mode == "snapshot":
+            line["publish_seconds"] = publish_s
+            require(fleet.health(1) is ReplicaHealth.HEALTHY
+                    and r["router.restored_replicas"] == 1,
+                    f"replica 1 was not restored in place: {line}")
+        else:
+            require(fleet.health(1) is ReplicaHealth.DOWN
+                    and r["router.migrations"] > 0,
+                    f"replica 1's requests did not migrate: {line}")
+            # the degraded fleet's v2 snapshot round trip
+            _ft_serve(fleet, done, "the degraded fleet", check, steps=1)
+            t0 = time.perf_counter()
+            snap = fleet.snapshot()
+            back = ReplicatedEngine.restore(snap, cfg, params,
+                                            **_nongeometry(ekw))
+            line["v2_round_trip_seconds"] = time.perf_counter() - t0
+            require(snap["format"] == "replicated-engine-snapshot-v2"
+                    and back.health(1) is ReplicaHealth.DOWN
+                    and back._owner == fleet._owner,
+                    "the degraded fleet's snapshot did not round-trip")
+            del fleet
+            fleet = back
+        _ft_serve(fleet, done, f"the {mode} fleet", check)
+        line["tokens_identical"] = tokens_of(reqs, done) == base
+        require(line["tokens_identical"],
+                f"{mode} failover: tokens differ from a single engine's")
+        out[f"kill_{mode}"] = line
+        if mode == "migration":
+            # elasticity on the survivor fleet: revive and grow, shrink
+            grow = fleet.scale_to(3)
+            more = _ft_family_trace(cfg.vocab, seed=6, n=6, new_tokens=8)
+            rs = _ft_serve(fleet, done, "the grown fleet", check,
+                           trace=more, steps=2)
+            owners = {fleet.owner_of(q.req_id) for q in rs}
+            shrink = fleet.scale_to(1)
+            _ft_serve(fleet, done, "the rescaled fleet", check)
+            out["scale"] = {
+                "grow": dataclasses.asdict(grow),
+                "shrink": dataclasses.asdict(shrink),
+                "owners_after_grow": sorted(owners),
+                "health": fleet.stats()["health"],
+                "reasons": [done[q.req_id][1] for q in rs]}
+            require(grow.action == "grow" and fleet.n_replicas == 3
+                    and shrink.action == "shrink"
+                    and fleet.stats()["health"].count("healthy") == 1
+                    and all(done[q.req_id][1] == "length" for q in rs),
+                    f"scale_to(3) then scale_to(1) failed: {out['scale']}")
+        del fleet
+
+    # a poison request: its replica dies twice under it
+    fleet = ReplicatedEngine(cfg, params, n_replicas=3,
+                             routing="round_robin", max_request_retries=2,
+                             **ekw)
+    small = _ft_family_trace(cfg.vocab, seed=7, n=3, new_tokens=8)
+    rs = [fleet.add_request(p, sp) for p, sp in small]
+    done = {}
+    first = fleet.owner_of(rs[0].req_id)
+    _arm_crash(fleet.replicas[first])
+    _ft_serve(fleet, done, "the poison fleet", check, steps=1)
+    second = fleet.owner_of(rs[0].req_id)
+    require(second is not None and second != first,
+            "the poison request did not migrate after the first kill")
+    _arm_crash(fleet.replicas[second])
+    _ft_serve(fleet, done, "the poison fleet", check)
+    out["quarantine"] = {"quarantined": sorted(fleet.quarantined),
+                         "reasons": [done[q.req_id][1] for q in rs],
+                         "router": fleet.stats()["router"]}
+    require(rs[0].req_id in fleet.quarantined
+            and done[rs[0].req_id][1] == "aborted"
+            and all(done[q.req_id][1] == "length" for q in rs[1:])
+            and fleet.stats()["router"]["router.quarantined"] == 1,
+            f"the poison request was not quarantined: {out['quarantine']}")
+    del fleet
+
+    # readings: 1 and 2 replicas on one card at a load that fills every
+    # slot (FT_LOAD_REQUESTS requests over the 4 families, all at once,
+    # FT_LOAD_NEW_TOKENS each).  Each fleet is warmed on one such load (its
+    # graphs captured, each family's stem committed on the replica the
+    # router then sends the family to), then timed on two more, in the
+    # order 1, 2, 2, 1; both fleets serve each load to the same tokens
+    fleets, readings, tokens = {}, {}, {}
+    for n in (1, 2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        fleets[n] = ReplicatedEngine(cfg, params, n_replicas=n,
+                                     routing="affinity", **ekw)
+        _ft_serve(fleets[n], {}, f"{n} replicas' warm-up", trace=(
+            _ft_family_trace(cfg.vocab, seed=10, n=FT_LOAD_REQUESTS,
+                             new_tokens=FT_LOAD_NEW_TOKENS, tails_seed=0)))
+        peak = torch.cuda.max_memory_allocated(dev)
+        readings[str(n)] = {"allocated_before": before,
+                            "max_memory_allocated": peak,
+                            "fleet_peak_bytes": peak - before, "runs": []}
+    for i, n in enumerate((1, 2, 2, 1)):
+        load = _ft_family_trace(cfg.vocab, seed=10, n=FT_LOAD_REQUESTS,
+                                new_tokens=FT_LOAD_NEW_TOKENS,
+                                tails_seed=1 + i // 2)
+        fleet, done = fleets[n], {}
+        hits = fleet.stats()["router"]["router.affinity_hits"]
+        steps = [r.step_idx for r in fleet.replicas]
+        fin = [r.stats["finished"] for r in fleet.replicas]
+        _sync(dev)
+        t0 = time.perf_counter()
+        rs = _ft_serve(fleet, done, f"{n} replicas' load", trace=load)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        toks = [done[q.req_id][0] for q in rs]
+        tokens.setdefault(i // 2, {})[n] = toks
+        n_out = sum(map(len, toks))
+        readings[str(n)]["runs"].append({
+            "load": 1 + i // 2, "requests": len(rs), "tokens": n_out,
+            "seconds": dt, "tokens_per_s": n_out / dt,
+            "replica_steps": [r.step_idx - s0
+                              for r, s0 in zip(fleet.replicas, steps)],
+            "replica_requests": [r.stats["finished"] - f0
+                                 for r, f0 in zip(fleet.replicas, fin)],
+            "affinity_hits": fleet.stats()["router"][
+                "router.affinity_hits"] - hits})
+    del fleets
+    out["readings"] = readings
+    require(all(t[1] == t[2] for t in tokens.values()),
+            "1 and 2 replicas served a load to other tokens")
+    require(all(min(run["replica_requests"]) >= ekw["max_slots"]
+                for run in readings["2"]["runs"]),
+            f"a replica was not given enough of a load to fill its slots: "
+            f"{readings['2']['runs']}")
+    return out
+
+
 def _tp_rank(mesh, jobs: dict) -> dict:
     """One rank of phase 5: for each job, the full params from their seed
     on this rank's device (then sliced by the engine), every trace served
@@ -978,9 +1499,94 @@ def _tp_rank(mesh, jobs: dict) -> dict:
             del eng
         if spec.get("profile"):
             res["profile"] = _profile_serve(cfg, params, mesh=mesh)
+        if spec.get("snapshot"):
+            res["snapshot"] = _tp_snapshot(mesh, cfg, params,
+                                           spec["snapshot"])
         del params
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     return out
+
+
+def _phase_ft(dev) -> None:
+    """Phase 3e: fault-tolerant serving of gpt2-medium at full width (bf16,
+    seed 0, phase 3's geometry, pool and trace; odd requests sampled at
+    FT_TEMPERATURE): snapshot/restore through the checkpoint store (full
+    and host state only, with prefill in flight and decoding; float, then
+    int8 factors with int8 KV), the seeded faults, crash recovery by the
+    EngineSupervisor, and two replicas behind the router."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    gpt2 = get_config("gpt2-medium")
+    qopts = dict(quantize="int8", fuse_projections=True, kv_dtype="int8")
+    ft_cfg = dataclasses.replace(gpt2, monarch=dataclasses.replace(
+        gpt2.monarch, backend="pallas"))
+    ft_params = T.init_params(ft_cfg, seed=0, device=dev)
+    ft_trace = _ft_trace(ft_cfg.vocab)
+    for opts, points, need in (
+            ({}, ((2, True), (2, False), (12, True), (12, False)),
+             ("monarch_fused", "paged_attention_span", "sample_tokens")),
+            (qopts, ((2, True), (12, True)),
+             ("monarch_fused_q", "paged_attention_span_q",
+              "quantize_kv_write", "sample_tokens"))):
+        base = _ft_uninterrupted(ft_cfg, ft_params, ft_trace, dev, **opts)
+        g = base["graphs"]
+        emit({"phase": "ft_uninterrupted", "options": opts,
+              **{k: base[k] for k in ("steps", "seconds", "per_step",
+                                      "graphs", "reasons")}})
+        require(all(base["per_step"].get(k, 0) > 0 for k in need),
+                f"3e {opts}: the serve did not run {need}: "
+                f"{base['per_step']}")
+        require(g["replays"] > 0
+                and g["captures"] + g["replays"] == base["steps"],
+                f"3e {opts}: every step but a bucket's first must replay "
+                f"its graph: {g}")
+        if not opts:
+            ft_base = base
+        for at, kv in points:
+            line = _ft_restore(ft_cfg, ft_params, ft_trace, base, at, kv,
+                               FT_DIR / "engine", dev, **opts)
+            emit({"phase": "ft_restore", "options": opts, **line})
+            require(line["prefilling_at_snapshot"] > 0 if at == 2 else
+                    line["prefilling_at_snapshot"] == 0
+                    and line["decoding_at_snapshot"] > 0,
+                    f"3e: the snapshot at step {at} is not where it must "
+                    f"be (prefill in flight at 2, decoding at 12): {line}")
+    emit({"phase": "ft_faults",
+          **_ft_faults(ft_cfg, ft_params, ft_base, dev)})
+    emit({"phase": "ft_crashes",
+          **_ft_crashes(ft_cfg, ft_params, ft_base, dev)})
+    emit({"phase": "ft_replicas", **_ft_replicas(ft_cfg, ft_params, dev)})
+    del ft_params
+    torch.cuda.empty_cache()
+
+
+def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
+    """A rank of phase 5's snapshots: the tp = 1 snapshot under
+    ``tp1_dir`` restored on this mesh and served to the end (its finished
+    requests' tokens, its launches); then the trace served afresh for
+    ``steps`` steps and saved under ``tp2_dir`` (rank 0 writes, every rank
+    gathers its heads)."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving import ContinuousBatchingEngine, SamplingParams
+
+    eng = ContinuousBatchingEngine.restore_latest(
+        spec["tp1_dir"], cfg, params, mesh=mesh,
+        **_nongeometry(spec["engine"]))
+    reset_launches()
+    restored: dict = {}
+    _ft_serve(eng, restored, "the tp=1 snapshot restored on the mesh")
+    counts = launches()
+    eng = ContinuousBatchingEngine(cfg, params, mesh=mesh, **spec["engine"])
+    before: dict = {}
+    reqs = _ft_serve(eng, before, "the tp=2 serve to its snapshot",
+                     trace=[(p, SamplingParams(max_new_tokens=8))
+                            for p in spec["prompts"]], steps=spec["steps"])
+    eng.save_snapshot(spec["tp2_dir"])
+    return {"restored": restored, "launches": counts, "before": before,
+            "req_ids": [r.req_id for r in reqs]}
 
 
 def main() -> int:
@@ -1021,7 +1627,7 @@ def main() -> int:
     from repro_torch.models.decode_path import (decode_weight_bytes,
                                                 prepare_decode_params)
     from repro_torch.models.fuse import fuse_linears
-    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving import ContinuousBatchingEngine, SamplingParams
 
     # fp32 products in full precision everywhere (PyTorch's default for
     # matmul; stated so no environment can turn TF32 on under the check)
@@ -2909,6 +3515,10 @@ def main() -> int:
             "the quickstart did not end with 'quickstart OK' through B1")
     phase_done("3d CIM, calibration and quickstart")
 
+    # -- 3e. fault-tolerant serving ---------------------------------------
+    _phase_ft(dev)
+    phase_done("3e fault-tolerant serving")
+
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_gpu = T.init_params(cfg32, seed=3, device=dev)
@@ -3343,6 +3953,36 @@ def main() -> int:
                ("monarch_fused", "sample_tokens"), sampled=True)
     phase_done("4 sampled traces")
 
+    # the fp32 weights' snapshot after 3 steps of the plain trace, taken
+    # on the card and restored on the CPU, and the reverse: the continued
+    # tokens are the uninterrupted card run's
+    plain_kw, plain_prompts, _ = traces["plain"]
+    snap_want = card_runs[("parity_tokens", "plain")]["tokens"]
+    snap_params = {"cuda": p_gpu, "cpu": p_cpu}
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        eng = ContinuousBatchingEngine(cfg32, snap_params[src], page_size=16,
+                                       use_paged_kernel=True, device=src,
+                                       **plain_kw)
+        snap_done: dict = {}
+        snap_reqs = _ft_serve(
+            eng, snap_done, f"the serve to its snapshot on {src}",
+            trace=[(p, SamplingParams(max_new_tokens=8))
+                   for p in plain_prompts], steps=3)
+        back = ContinuousBatchingEngine.restore(
+            eng.snapshot(), cfg32, snap_params[dst], use_paged_kernel=True,
+            device=dst)
+        _ft_serve(back, snap_done, f"the snapshot restored on {dst}")
+        snap_toks = [snap_done[r.req_id][0] for r in snap_reqs]
+        emit({"phase": "parity_snapshot", "taken_on": src,
+              "restored_on": dst, "tokens": snap_toks,
+              "identical_to_card_run": snap_toks == snap_want})
+        require(snap_toks == snap_want,
+                f"a snapshot taken on {src} and restored on {dst} continued "
+                f"with other tokens: {snap_toks} vs {snap_want}")
+        del eng, back
+    del snap_params
+    phase_done("4 snapshot card <-> CPU")
+
     # -- 4b. int8 factors (fused QKV), fp32 KV: as exact as fp32 -------------
     q_gpu = prepare_decode_params(p_gpu, cfg32, fuse=True, bits=8)
     q_cpu = prepare_decode_params(p_cpu, cfg32, fuse=True, bits=8)
@@ -3550,6 +4190,22 @@ def main() -> int:
                                             "traces": int8_traces}})
     int8_base = int8_base["int8_kv"]["traces"]
     p32_sum = _checksum(p_gpu)
+    # the tp = 1 snapshot the ranks restore at tp = 2: the plain trace
+    # after 3 steps
+    import shutil
+
+    tp_dirs = {t: FT_DIR / f"tp{t}" for t in (1, TP)}
+    for d in tp_dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    plain_kw, plain_prompts, _ = traces["plain"]
+    eng = ContinuousBatchingEngine(cfg32, p_gpu, page_size=16,
+                                   use_paged_kernel=True, **plain_kw)
+    tp1_done: dict = {}
+    tp1_reqs = _ft_serve(eng, tp1_done, "the tp=1 serve to its snapshot",
+                         trace=[(p, SamplingParams(max_new_tokens=8))
+                                for p in plain_prompts], steps=3)
+    eng.save_snapshot(tp_dirs[1])
+    del eng
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
 
@@ -3563,6 +4219,13 @@ def main() -> int:
         "bf16": {"cfg": cfg, "seed": 0, "profile": True, "traces": {
             "serve": ({**SERVE_KW, "pool_bytes": fp_serve["pool_bytes"]},
                       _serve_prompts(cfg.vocab, 8, 32, 256, 0), 0, 32)}},
+        # the tp = 1 snapshot restored at tp = 2; a tp = 2 snapshot saved
+        "snapshot": {"cfg": cfg32, "seed": 3, "traces": {}, "snapshot": {
+            "tp1_dir": str(tp_dirs[1]), "tp2_dir": str(tp_dirs[TP]),
+            "engine": dict(page_size=16, use_paged_kernel=True,
+                           **plain_kw),
+            "prompts": [np.asarray(p) for p in plain_prompts],
+            "steps": 3}},
     }
     t0 = time.perf_counter()
     ranks = run_ranks(_tp_rank, TP, backend="gloo", device="cuda:0",
@@ -3574,7 +4237,7 @@ def main() -> int:
     bases = {"fp32": {t: card_runs[("parity_tokens", t)] for t in traces},
              "int8_kv": int8_base, "bf16": {"serve": bf16_serve}}
     checksums = {"fp32": p32_sum, "int8_kv": p32_sum,
-                 "bf16": bf16_serve["checksum"]}
+                 "bf16": bf16_serve["checksum"], "snapshot": p32_sum}
     for job, spec in jobs.items():
         require(all(r[job]["checksum"] == checksums[job] for r in ranks),
                  f"tp {job}: the ranks initialized other weights")
@@ -3646,6 +4309,46 @@ def main() -> int:
             "paged_attention_span_sharded_q"] for t in int8_traces)
 
     phase_done("5c tp ranks")
+
+    # 5d. the snapshots across meshes: the tp = 1 snapshot continued at
+    # tp = 2 (every rank, in 5c), and the ranks' tp = 2 snapshot continued
+    # at tp = 1 on the card; both to the uninterrupted tp = 1 run's tokens
+    snap_want = card_runs[("parity_tokens", "plain")]["tokens"]
+    for rank, r in enumerate(ranks):
+        res = r["snapshot"]["snapshot"]
+        snap_done = {**tp1_done, **res["restored"]}
+        snap_toks = [snap_done[q.req_id][0] for q in tp1_reqs]
+        snap_c = res["launches"]
+        emit({"phase": "tp_snapshot", "direction": f"tp=1 -> tp={TP}",
+              "rank": rank, "tokens": snap_toks,
+              "identical_to_tp1": snap_toks == snap_want,
+              "launches": snap_c})
+        require(snap_toks == snap_want, f"the tp=1 snapshot continued at "
+                f"tp={TP} with other tokens on rank {rank}")
+        require(snap_c["paged_attention_span_sharded"] > 0
+                and snap_c["paged_attention_span"] == 0,
+                f"the restored tp={TP} engine did not run B7: {snap_c}")
+    p_gpu = T.init_params(cfg32, seed=3, device=dev)
+    snap_ranks = ranks[0]["snapshot"]["snapshot"]
+    back = ContinuousBatchingEngine.restore_latest(
+        tp_dirs[TP], cfg32, p_gpu, use_paged_kernel=True)
+    reset_launches()
+    snap_done = dict(snap_ranks["before"])
+    _ft_serve(back, snap_done, f"the tp={TP} snapshot restored at tp=1")
+    snap_toks = [snap_done[i][0] for i in snap_ranks["req_ids"]]
+    snap_c = launches()
+    emit({"phase": "tp_snapshot", "direction": f"tp={TP} -> tp=1",
+          "tokens": snap_toks, "identical_to_tp1": snap_toks == snap_want,
+          "kv_shard": back.kv.kv_shard, "launches": snap_c,
+          "graphs": _graph_stats(back)})
+    require(snap_toks == snap_want, f"the tp={TP} snapshot continued at tp=1 "
+            f"with other tokens: {snap_toks} vs {snap_want}")
+    require(snap_c["paged_attention_span"] > 0
+            and snap_c["paged_attention_span_sharded"] == 0,
+            f"the restored tp=1 engine did not run B3: {snap_c}")
+    del back, p_gpu
+    shutil.rmtree(FT_DIR, ignore_errors=True)
+    phase_done("5d tp snapshots")
 
     # -- summary --------------------------------------------------------------
     kernels = []

@@ -1,0 +1,11 @@
+"""Fault tolerance of the port: heartbeats, supervisors, straggler
+detection and elastic remesh planning (host code)."""
+
+from repro_torch.ft.coordinator import (  # noqa: F401
+    ElasticPlan,
+    EngineSupervisor,
+    FleetSupervisor,
+    HeartbeatRegistry,
+    StragglerMonitor,
+    plan_elastic_remesh,
+)

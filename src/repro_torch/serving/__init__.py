@@ -9,14 +9,29 @@ forward through ``models.transformer.paged_mixed_step``.  The scheduler's
 two step-pricing models, ``HBMCostModel`` (a weight-streaming roofline)
 and ``CIMCostModel`` (the paper's CIM simulator, ``repro_torch.cim``), are
 the reference's.
+
+Fault tolerance is the reference's too: engine snapshots through the
+checkpoint store (``snapshot``), the seeded fault injector and the
+recovery oracles (``faults``), and R engine replicas behind one router
+with health, failover, migration and quarantine (``replicas``).
 """
 
+from repro_torch.serving.device_kv import (DeviceKV,  # noqa: F401
+                                           kv_shard_size)
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: F401
                                         GenerationConfig)
+from repro_torch.serving.faults import (DispatchFailure,  # noqa: F401
+                                        FaultInjector, InjectedFault,
+                                        SimulatedCrash,
+                                        assert_fleet_invariants,
+                                        assert_recovery_invariants)
 from repro_torch.serving.kv_pool import (PagedKVPool, PoolOOM,  # noqa: F401
-                                         SINK_PAGE)
-from repro_torch.serving.metrics import (Calibration,  # noqa: F401
-                                         EngineStats, MetricsRegistry)
+                                         PoolStats, PrefixMatch, SINK_PAGE)
+from repro_torch.serving.metrics import (Calibration, Counter,  # noqa: F401
+                                         EngineStats, Gauge, Histogram,
+                                         MetricsRegistry, render_report)
+from repro_torch.serving.replicas import (ReplicaHealth,  # noqa: F401
+                                          ReplicatedEngine, ROUTING_POLICIES)
 from repro_torch.serving.request import (FinishReason, Request,  # noqa: F401
                                          RequestState, SamplingParams,
                                          Sequence)
@@ -25,4 +40,5 @@ from repro_torch.serving.scheduler import (CIMCostModel,  # noqa: F401
                                            IterationScheduler,
                                            SchedulerConfig, StepPlan)
 from repro_torch.serving.tracing import (NULL_TRACER,  # noqa: F401
-                                         ChromeTracer)
+                                         ChromeTracer, NullTracer,
+                                         load_trace, validate_trace)

@@ -80,11 +80,13 @@ class DeviceKV:
 
     def export(self) -> dict:
         """Every rank's heads, gathered into one host tree (the same tree
-        at every ``tp``).  A collective when the pool is split."""
+        at every ``tp``), a copy even of a pool on the CPU.  A collective
+        when the pool is split."""
         def one(leaf):
             if self.kv_shard > 1:
-                leaf = api.all_gather_cat(leaf, self.mesh, dim=_kv_axis(leaf))
-            return leaf.cpu()
+                return api.all_gather_cat(leaf, self.mesh,
+                                          dim=_kv_axis(leaf)).cpu()
+            return leaf.to("cpu", copy=True)
 
         return tree_map(one, self.pool)
 

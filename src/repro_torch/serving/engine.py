@@ -84,12 +84,26 @@ until the next step (a request added between steps is stamped with the
 last step's reading; a ``cancel`` between steps is one of the calls
 every rank receives).  That costs one small host broadcast a step where
 planning on rank 0 would cost a packed-plan broadcast plus host code to
-replay it.  Under a mesh ``quantize``/``fuse_projections`` raise
-``NotImplementedError`` (not ported yet).
+replay it.
 
-Not ported yet (they raise ``NotImplementedError``): ``fault_injector``,
-``heartbeat`` and snapshot/restore.  The legacy ``ServeEngine`` is not
-ported either.
+**Fault tolerance** (the reference's hooks, at the same points):
+``fault_injector`` (``serving.faults.FaultInjector``) is called at the
+start of every step, at the top of the dispatch (before any host
+bookkeeping) and on both sides of the harvest; a ``DispatchFailure``
+there is recovered by draining and preempting every resident
+(``stats["dispatch_failures"]``).  ``heartbeat`` (a
+``ft.coordinator.HeartbeatRegistry``) receives ``(heartbeat_rank,
+step_idx)`` every step.  ``readmit`` adopts a request migrated off a
+failed replica (``serving.replicas``).  ``snapshot`` / ``save_snapshot``
+/ ``restore`` / ``restore_latest`` go through ``serving.snapshot``: the
+restore copies device state into the engine's own tensors, so its step
+graphs read the restored state.  Under a mesh every rank snapshots (the
+pages' export is a collective) and rank 0 alone writes the files.
+
+Still not ported (they raise ``NotImplementedError``): quantized or fused
+factors under a mesh (``quantize``/``fuse_projections`` with ``mesh=``),
+and a mesh whose ``"data"`` axis is > 1.  The legacy ``ServeEngine`` is
+not ported either.
 """
 
 from __future__ import annotations
@@ -117,6 +131,7 @@ from repro_torch.models.decode_path import prepare_decode_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.launch.mesh import rank_device
 from repro_torch.serving.device_kv import DeviceKV
+from repro_torch.serving.faults import DispatchFailure
 from repro_torch.serving.kv_pool import PagedKVPool, PoolOOM, SINK_PAGE
 from repro_torch.serving.metrics import (Calibration, EngineStats,
                                          LATENCY_MS_BUCKETS, MetricsRegistry,
@@ -127,7 +142,7 @@ from repro_torch.serving.scheduler import (CostModel, IterationScheduler,
                                            SchedulerConfig, StepPlan)
 from repro_torch.serving.step_graphs import StepGraphs
 from repro_torch.serving.tracing import NULL_TRACER, ChromeTracer
-from repro_torch.sharding.api import broadcast_time
+from repro_torch.sharding.api import barrier, broadcast_time
 from repro_torch.sharding.params import shard_params, tp_plan
 
 
@@ -256,11 +271,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"quantize must be one of {sorted(BITS_BY_NAME)} or None, "
                 f"got {quantize!r}")
-        unported = {"fault_injector": fault_injector is not None,
-                    "heartbeat": heartbeat is not None}
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(f"{name} is not ported yet")
         if mesh is not None and (quantize or fuse_projections):
             raise NotImplementedError(
                 "quantized or fused factors under tensor parallelism are "
@@ -413,6 +423,14 @@ class ContinuousBatchingEngine:
         else:  # rank 0's reading, refreshed at the start of every step
             self._step_time = broadcast_time(time.perf_counter(), mesh)
             self._clock = lambda: self._step_time
+        # chaos hooks (serving/faults.py): the injector may skew _clock
+        self.faults = fault_injector
+        # multiplier on the step times this engine reports to a fleet's
+        # straggler monitor (the "straggle" fault; 1.0 = honest wall time)
+        self.straggle_factor = 1.0
+        # optional liveness reporting: heartbeat.report(rank, step) a step
+        self.heartbeat = heartbeat
+        self.heartbeat_rank = heartbeat_rank
         # requests finished outside the step loop (``cancel()``) surface
         # through the next ``step()``'s return value
         self._overflow: list[Request] = []
@@ -453,6 +471,30 @@ class ContinuousBatchingEngine:
             self._g_queue.set(len(self.waiting))
         return req
 
+    def readmit(self, req: Request) -> Request:
+        """Adopt an EXISTING request -- typically migrated off a failed
+        replica -- into this engine's waiting queue via the preemption
+        contract: cursor reset (its KV lives on the dead engine, recompute
+        on resume), emitted tokens / ``resume_key`` / budgets / priority
+        kept.  ``t_arrival`` is preserved, so a ``deadline_s`` budget keeps
+        counting from the original arrival; the queue-wait clock restarts."""
+        if req.state is RequestState.FINISHED:
+            raise ValueError(
+                f"request {req.req_id} already finished; nothing to readmit")
+        self._check_fits(req)
+        req.state = RequestState.WAITING
+        req.num_computed_tokens = 0
+        req.num_cached_tokens = 0
+        req.arrived_step = self.step_idx
+        now = self._clock()
+        if req.t_arrival < 0:
+            req.t_arrival = now
+        req.t_enqueued = req.mark("migrated", now)
+        self.waiting.append(req)
+        if self.metrics_enabled:
+            self._g_queue.set(len(self.waiting))
+        return req
+
     def has_work(self) -> bool:
         return bool(self.waiting or self.running or self._pending
                     or self._overflow)
@@ -466,6 +508,11 @@ class ContinuousBatchingEngine:
         self.step_idx += 1
         if self.mesh is not None:
             self._step_time = broadcast_time(time.perf_counter(), self.mesh)
+        if self.faults is not None:
+            self.faults.on_step(self)
+        if self.heartbeat is not None:
+            self.heartbeat.report(self.heartbeat_rank, self.step_idx,
+                                  now=self._clock())
         t0 = time.perf_counter()
         pred0 = self.stats["sim_latency_ns"]
         with self.tracer.span("step", step=self.step_idx):
@@ -519,12 +566,30 @@ class ContinuousBatchingEngine:
                     seq.page_ids.extend(new)
         spans.extend(self._admit(plan.admissions))
         if spans:
-            self._dispatch(spans)
+            try:
+                self._dispatch(spans)
+            except DispatchFailure:
+                # the preemption contract: land every in-flight step (the
+                # keys settle), then evict ALL residents to WAITING; the
+                # failed dispatch launched nothing, so recompute on resume
+                # reproduces the exact token streams
+                self.stats["dispatch_failures"] += 1
+                self.tracer.instant("dispatch_failure", step=self.step_idx)
+                finished.extend(self.drain())
+                for seq in sorted(self.running.values(),
+                                  key=lambda s: (s.request.sampling.priority,
+                                                 -s.admit_order)):
+                    self._preempt(seq)
+                return finished
 
+        if self.faults is not None:
+            self.faults.on_harvest(self, "before")
         # harvest everything but the step just dispatched (one-step lag)
         keep_last = 1 if spans else 0
         while len(self._pending) > keep_last:
             finished.extend(self._harvest(self._pending.pop(0)))
+        if self.faults is not None:
+            self.faults.on_harvest(self, "after")
         return finished
 
     # -- deadlines / cancellation ------------------------------------------
@@ -730,6 +795,11 @@ class ContinuousBatchingEngine:
             self._dispatch_inner(spans)
 
     def _dispatch_inner(self, spans: list[tuple[Sequence, int]]) -> None:
+        # injected dispatch failures fire here, before any host bookkeeping
+        # (cursor advances, page draws): the recovery in _step_inner
+        # assumes a failed dispatch changed nothing
+        if self.faults is not None:
+            self.faults.on_dispatch(self)
         B = self.max_slots
         Sb = _bucket(max(n for _, n in spans))
         chunk_tok = np.zeros((B, Sb), np.int32)
@@ -916,17 +986,48 @@ class ContinuousBatchingEngine:
         self.tracer.instant("preempt", req_id=req.req_id)
         self.waiting.appendleft(req)
 
-    # -- not ported yet ----------------------------------------------------
+    # -- snapshot / restore ------------------------------------------------
 
     def snapshot(self, include_kv: bool = True) -> dict:
-        raise NotImplementedError("engine snapshots are not ported yet")
+        """The complete serving state (queues, cursors, page tables,
+        prefix trie, slot state, device KV) after draining the in-flight
+        dispatch chain; ``include_kv=False`` keeps host state only (the
+        restore recomputes on resume).  See ``serving/snapshot.py``."""
+        from repro_torch.serving.snapshot import snapshot_engine
+
+        return snapshot_engine(self, include_kv=include_kv)
 
     def save_snapshot(self, directory, include_kv: bool = True) -> dict:
-        raise NotImplementedError("engine snapshots are not ported yet")
+        """``snapshot()`` persisted through ``checkpoint/store.py`` (atomic
+        rename, per-leaf CRC32); under a mesh rank 0 writes and every rank
+        waits for it.  Returns the in-memory snapshot."""
+        from repro_torch.serving.snapshot import save_snapshot
+
+        snap = self.snapshot(include_kv=include_kv)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_snapshot(directory, snap)
+        if self.mesh is not None:
+            barrier(self.mesh)
+        return snap
 
     @classmethod
-    def restore(cls, snap: dict, cfg: ModelConfig, params, **engine_kw):
-        raise NotImplementedError("engine snapshots are not ported yet")
+    def restore(cls, snap: dict, cfg: ModelConfig, params,
+                **engine_kw) -> "ContinuousBatchingEngine":
+        """A new engine from a ``snapshot()`` dict (``serving/snapshot.py``
+        holds the recovery contract)."""
+        from repro_torch.serving.snapshot import restore_engine
+
+        return restore_engine(snap, cfg, params, **engine_kw)
+
+    @classmethod
+    def restore_latest(cls, directory, cfg: ModelConfig, params,
+                       **engine_kw) -> "ContinuousBatchingEngine":
+        """A new engine from the newest snapshot saved under
+        ``directory``."""
+        from repro_torch.serving.snapshot import load_snapshot, restore_engine
+
+        return restore_engine(load_snapshot(directory, cfg), cfg, params,
+                              **engine_kw)
 
 
 __all__ = ["ContinuousBatchingEngine", "GenerationConfig"]

@@ -57,4 +57,10 @@ def broadcast_time(value: float, mesh, src: int = 0) -> float:
     return float(t[0])
 
 
-__all__ = ["divides", "all_reduce_sum", "all_gather_cat", "broadcast_time"]
+def barrier(mesh) -> None:
+    """Wait until every rank of the mesh reaches this call (host group)."""
+    dist.barrier(group=mesh.host_group)
+
+
+__all__ = ["divides", "all_reduce_sum", "all_gather_cat", "broadcast_time",
+           "barrier"]

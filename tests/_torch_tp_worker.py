@@ -170,6 +170,83 @@ def _step(mesh, cfg, params, step: dict) -> torch.Tensor:
     return logits
 
 
+def snapshot_across_meshes(mesh, job: dict) -> dict:
+    """The engine snapshot across meshes, on this rank: restore the tp = 1
+    snapshot under ``tp1_dir`` at this mesh's tp and serve it to the end
+    (every request's tokens, by request id); then serve ``prompts`` afresh
+    for ``steps`` steps and save the tp = 2 snapshot under ``tp2_dir``
+    (rank 0 writes it, every rank exports its heads)."""
+    import sys
+
+    torch.set_num_threads(1)
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serving import ContinuousBatchingEngine, SamplingParams
+
+    cfg = job["cfg"]
+    params = params_from_numpy(job["params"], device="cpu")
+    eng = ContinuousBatchingEngine.restore_latest(job["tp1_dir"], cfg,
+                                                  params, mesh=mesh)
+    kv_shard = eng.kv.kv_shard
+    done = {r.req_id: list(r.output_tokens) for r in eng.run()}
+    eng = ContinuousBatchingEngine(cfg, params, mesh=mesh, **job["geom"])
+    reqs = [eng.add_request(p, SamplingParams(**sp))
+            for p, sp in zip(job["prompts"], job["sampling"])]
+    for _ in range(job["steps"]):
+        eng.step()
+    eng.save_snapshot(job["tp2_dir"])
+    return {"rank": mesh.rank, "kv_shard": kv_shard,
+            "restored_tp1_tokens": [done[k] for k in sorted(done)],
+            "tp2_req_ids": [r.req_id for r in reqs],
+            "jax_or_reference_loaded": sorted(
+                m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                               "repro"))}
+
+
+def faults_on_mesh(mesh, job: dict) -> dict:
+    """``job["schedule"]`` (step, kind, kw) armed on this rank's own
+    ``FaultInjector`` (every rank receives the same calls), then the
+    trace served to the end: each request's finish reason and tokens,
+    the injector's log and the engine's recovery counters."""
+    torch.set_num_threads(1)
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     FaultInjector, SamplingParams,
+                                     assert_recovery_invariants)
+
+    return run_faults(
+        ContinuousBatchingEngine, FaultInjector, SamplingParams,
+        assert_recovery_invariants, job,
+        params=params_from_numpy(job["params"], device="cpu"), mesh=mesh)
+
+
+def run_faults(engine_cls, injector_cls, sampling_cls, check, job: dict,
+               **engine_kw) -> dict:
+    """Serve ``job``'s trace under its fault schedule through any engine
+    with the ``ContinuousBatchingEngine`` API (the test process drives
+    tp = 1 engines with the same code)."""
+    fi = injector_cls()
+    for step, kind, kw in job["schedule"]:
+        fi.schedule(step, kind, **kw)
+    eng = engine_cls(job["cfg"], engine_kw.pop("params"),
+                     fault_injector=fi, **job["geom"], **engine_kw)
+    reqs = [eng.add_request(p, sampling_cls(**sp))
+            for p, sp in zip(job["prompts"], job["sampling"])]
+    steps = 0
+    while eng.has_work():
+        eng.step()
+        check(eng)
+        steps += 1
+        assert steps < 2000, "engine did not converge"
+    fi.release_all(eng)
+    return {"reasons": [r.finish_reason.value for r in reqs],
+            "tokens": [list(r.output_tokens) for r in reqs],
+            "log": [list(e) for e in fi.log],
+            "stats": {k: eng.stats[k] for k in (
+                "dispatch_failures", "preemptions", "timeouts")}}
+
+
 def collectives(mesh) -> dict:
     """One of each collective on rank-dependent values."""
     from repro_torch.sharding import api

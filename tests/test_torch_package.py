@@ -41,7 +41,11 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
             "repro_torch.sharding.params",
             "repro_torch.serving.device_kv", "repro_torch.core.d2s",
             "repro_torch.core.permutations",
-            "repro_torch.examples.quickstart"} <= set(mods)
+            "repro_torch.examples.quickstart",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+            "repro_torch.ft", "repro_torch.ft.coordinator",
+            "repro_torch.serving.snapshot", "repro_torch.serving.faults",
+            "repro_torch.serving.replicas"} <= set(mods)
     assert {f"repro_torch.cim.{m}" for m in (
         "spec", "mapping", "scheduling", "cost", "workload", "simulator",
         "dse", "functional")} <= set(mods)

@@ -277,11 +277,21 @@ def test_generate_compat_and_not_ported_options(model):
     assert req.finish_reason is tserving.FinishReason.LENGTH
     assert len(req.output_tokens) == 3
     assert all(0 <= t < tc.vocab for t in req.output_tokens)
-    for kw in ({"fault_injector": object()}, {"heartbeat": object()}):
-        with pytest.raises(NotImplementedError):
-            tserving.ContinuousBatchingEngine(tc, tp, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        eng.snapshot()
+    # fault injection, heartbeats and snapshots are ported too
+    from repro_torch.ft.coordinator import HeartbeatRegistry
+
+    reg = HeartbeatRegistry()
+    ft = tserving.ContinuousBatchingEngine(
+        tc, tp, max_slots=2, page_size=4, max_len=32, device="cpu",
+        fault_injector=tserving.FaultInjector().schedule(
+            2, "dispatch_failure"), heartbeat=reg, heartbeat_rank=3)
+    req = ft.add_request([1, 2], tserving.SamplingParams(max_new_tokens=3))
+    ft.run()
+    assert len(req.output_tokens) == 3
+    assert ft.stats["dispatch_failures"] == 1
+    assert reg.last_step(3) == ft.step_idx
+    snap = eng.snapshot()
+    assert snap["step_idx"] == eng.step_idx and not snap["requests"]
 
 
 @pytest.mark.parametrize("kw", [{"quantize": "int8"},
