@@ -46,7 +46,9 @@ Phases, each printed as one JSON object per line:
               X3, the token draw (sample_tokens: a threefry Gumbel draw
               at temperature > 0, else argmax, and the key split), its
               noise and tokens torch.equal to its plain version at
-              gpt2-medium's and nemotron-4-15b's vocabularies
+              gpt2-medium's and nemotron-4-15b's vocabularies, and its
+              block draw (sample_block: one key for the whole (8, Vp)
+              block, the legacy ServeEngine's) likewise
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels, each
@@ -78,7 +80,9 @@ Phases, each printed as one JSON object per line:
               call set against their plain versions and SDPA; the float
               serve (B1, B2 staged, B3) and an int8 serve (int8 factors,
               K and V fused, int8 KV pages: B4, B5, B6, X2), each with its
-              replays torch.equal to eager steps and a profiled window
+              replays torch.equal to eager steps and a profiled window;
+              then one greedy ServeEngine generate (B = 8, prompt 64, 16
+              new tokens; the first GQA ring on the card: B1, B2, X3)
   3d. paper   the paper's pipeline: gpt2-medium:dense (fp32, seed 0, full
               width) D2S-converted on the card (core/d2s.py: q, k, v, o,
               w1, w2) and on the CPU from the same dense tensors, every
@@ -121,6 +125,20 @@ Phases, each printed as one JSON object per line:
               each, every replica's slots full), timed 1, 2, 2, 1 after a
               warm-up load, both fleets to the same tokens, and the card's
               peak memory of each fleet
+  3f. ring    gpt2-medium at full width (bf16, seed 0) through the legacy
+              ServeEngine over the ring cache: greedy and sampled (0.8)
+              generates at B = 8, prompt 128, 32 new tokens, every decode
+              step a replay of the ring's CUDA graph (the replay
+              torch.equal to an eager decode_step on a cloned ring,
+              decode_step_layerwise torch.equal to decode_step), 144 B1 +
+              1 X3 a decode step (counters and torch.profiler), 1 host
+              sync a generate; readings: prefill ms, the graph's and the
+              layerwise loop's decode step (wall and device ms), tokens/s,
+              the _prefill = None baseline at B = 1, and greedy tokens
+              against the continuous-batching engine's (bf16: where they
+              part and the ring's logit margin there); then ``python -m
+              repro_torch.examples.serve_decode`` in-process, the default
+              engine and ``--engine legacy``, each report through B1
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
@@ -141,7 +159,11 @@ Phases, each printed as one JSON object per line:
               against float64, and each op alone on the card's inputs)
               and a greedy trace; a snapshot of the fp32 plain trace
               after 3 steps taken on the card and continued on the CPU,
-              and the reverse, each with the uninterrupted card tokens
+              and the reverse, each with the uninterrupted card tokens;
+              the fp32 ServeEngine card vs CPU (a prefill's and a decode
+              step's logits within PARITY_REL_TOL, greedy tokens
+              identical) and against the continuous-batching engine's
+              tokens on the plain trace's prompts
   5. tp       tensor parallelism on the one card: B7, the span kernel per
               rank on its heads of the phase-2 pools (tp 2 and 4, float and
               int8 pages), against its plain version and, concatenated,
@@ -151,9 +173,14 @@ Phases, each printed as one JSON object per line:
               (tokens equal to the card's tp = 1, every step's logits within
               PARITY_REL_TOL), the same traces over int8 KV pages (tokens
               >= INT8_KV_TOKEN_AGREEMENT of tp = 1's) and phase 3's bf16
-              serve (a reading) with a profiled window; every rank runs 24
-              B7 launches and 144 local Monarch launches a step, no
-              float-page span launch and no dense fallback; a tp = 1
+              serve (a reading) with a profiled window; the fp32 traces
+              again with int8 and with packed-int4 factors, fused QKV and
+              up/gate (prepared whole, then sharded; tokens and counters
+              equal to the card's tp = 1 engine with the same options,
+              every step's logits within PARITY_REL_TOL), and with int8
+              factors over int8 pages (>= INT8_KV_TOKEN_AGREEMENT); every
+              rank runs 24 B7 launches and 144 local B1 (96 B4) launches a
+              step, no unsharded span launch and no dense fallback; a tp = 1
               snapshot of the fp32 plain trace continued by the two ranks
               (B7), and their tp = 2 snapshot (rank 0 writes the gathered
               pages) continued at tp = 1 on the card (B3), both with the
@@ -244,6 +271,10 @@ FT_LOAD_REQUESTS = 32
 FT_LOAD_NEW_TOKENS = 64
 FT_FAULT_KINDS = ("pool_exhaustion", "dispatch_failure", "clock_skew",
                   "straggle", "heartbeat_silence")
+# phase 3f's ServeEngine generates: batch, prompt tokens, new tokens
+RING_BATCH = 8
+RING_PROMPT = 128
+RING_NEW = 32
 
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
            "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
@@ -364,6 +395,31 @@ def _warm(eng, vocab: int) -> None:
         S *= 2
 
 
+def _profile_steps(step, n: int, sync) -> dict:
+    """torch.profiler's device kernels over ``n`` calls of ``step``, one
+    profile a call (a profile of many steps' launches can overflow the
+    tracer's buffers and drop kernel records), each ended by ``sync()``:
+    kernel name -> (device us, launches), summed over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    by_key: dict = {}
+    for _ in range(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            sync()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue  # host ops also carry their kernels' device time
+            dt = getattr(e, "self_device_time_total", None)
+            if dt is None:
+                dt = e.self_cuda_time_total
+            us, k = by_key.get(e.key, (0.0, 0))
+            by_key[e.key] = (us + dt, k + e.count)
+    return by_key
+
+
 def _window(eng, n_steps: int, watch: tuple = ()) -> dict:
     """Where ``n_steps`` engine steps' time goes: wall clock of
     synchronized steps, the span tokens a second, the device's kernel time
@@ -375,8 +431,6 @@ def _window(eng, n_steps: int, watch: tuple = ()) -> dict:
     harvest's wait for the card), the graph captures and replays of the
     window, and the host syncs PyTorch's sync debug mode detects."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import launches
 
@@ -390,23 +444,8 @@ def _window(eng, n_steps: int, watch: tuple = ()) -> dict:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_steps
     toks = eng.stats["prefill_tokens"] + eng.stats["decode_tokens"] - toks0
-    # one profile a step: a window of 8 steps' launches in one profile can
-    # overflow the tracer's buffers and drop kernel records
     counted0 = launches()
-    by_key: dict = {}
-    for _ in range(n_steps):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng.step()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue  # host ops also carry their kernels' device time
-            dt = getattr(e, "self_device_time_total", None)
-            if dt is None:
-                dt = e.self_cuda_time_total
-            us, n = by_key.get(e.key, (0.0, 0))
-            by_key[e.key] = (us + dt, n + e.count)
+    by_key = _profile_steps(eng.step, n_steps, torch.cuda.synchronize)
     counted = launches()
     rows = sorted(((us / 1e3 / n_steps, key, n)
                    for key, (us, n) in by_key.items()), reverse=True)
@@ -1561,6 +1600,329 @@ def _phase_ft(dev) -> None:
     emit({"phase": "ft_replicas", **_ft_replicas(ft_cfg, ft_params, dev)})
     del ft_params
     torch.cuda.empty_cache()
+
+
+# -- phase 3f: the ring cache and the legacy ServeEngine ---------------------
+
+def _ring_window(dev, step, n: int) -> dict:
+    """``n`` calls of ``step`` (one decode step each): wall ms a step of
+    the synchronized loop, and torch.profiler's device ms a step, the
+    launch families' kernels a step (PROFILED) and the top kernels (ms
+    and launches a step; one profile a step)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    _sync(dev)
+    wall = (time.perf_counter() - t0) / n
+    by_key = _profile_steps(step, n, lambda: _sync(dev))
+    device = sum(us for us, _ in by_key.values()) / 1e3 / n
+    seen = {name: sum(k for key, (_, k) in by_key.items() if name in key) / n
+            for name in PROFILED}
+    top = sorted(((us / 1e3 / n, key, k / n)
+                  for key, (us, k) in by_key.items()), reverse=True)[:8]
+    return {"wall_ms_per_step": wall * 1e3, "device_ms_per_step": device,
+            "device_busy_share": device / (wall * 1e3),
+            "kernels_per_step_profiled": seen,
+            "launches_per_step_profiled": sum(k for _, k in by_key.values())
+            / n,
+            "top_kernels_ms_per_step": [[key[:70], ms, k]
+                                        for ms, key, k in top]}
+
+
+def _ring_logits(eng, prompts, n: int) -> tuple[list, list]:
+    """A greedy ``generate`` by hand on the engine's own ring: each step's
+    tokens and logits (the prefill's, then each decode step's), on the
+    host."""
+    import torch
+
+    from repro_torch.kernels.sample import sample_block
+
+    cache = eng._ring(prompts.shape[0])
+    key = torch.zeros((1, 2), dtype=torch.int32, device=eng.device)
+    temps = torch.zeros(prompts.shape[0], device=eng.device)
+    logits, cache = eng._prefill(eng.params, prompts, cache)
+    toks, lgs = [], []
+    for i in range(n):
+        if i:
+            logits, cache = eng._decode(eng.params, tok, cache)
+        tok = sample_block(logits, temps, key, False)
+        toks.append(tok.cpu())
+        lgs.append(logits.float().cpu())
+    return toks, lgs
+
+
+def _ring_vs_paged(eng, cb_tokens: list, prompts) -> dict:
+    """Greedy tokens of the ring engine (``ServeEngine``) against the
+    continuous-batching engine's on the same prompts: identical, or the
+    first (row, token) where they part, with the ring's logit margin
+    there (its best against its second best, and against the paged
+    engine's token)."""
+    toks, lgs = _ring_logits(eng, prompts, len(cb_tokens[0]))
+    ring = [[int(t[b]) for t in toks] for b in range(prompts.shape[0])]
+    first = min(((j, b) for b in range(len(ring))
+                 for j, (x, y) in enumerate(zip(ring[b], cb_tokens[b]))
+                 if x != y), default=None)
+    out = {"identical": ring == cb_tokens,
+           "rows_identical": sum(a == b for a, b in zip(ring, cb_tokens)),
+           "rows": len(ring)}
+    if first is not None:
+        j, b = first
+        lg = lgs[j][b]
+        top = lg.topk(2)
+        out["first_parting"] = {
+            "row": b, "token": j, "ring": ring[b][j], "paged": cb_tokens[b][j],
+            "ring_top2_margin": float(top.values[0] - top.values[1]),
+            "ring_margin_over_paged_token": float(
+                lg[ring[b][j]] - lg[cb_tokens[b][j]])}
+    return out
+
+
+def _phase_ring(dev) -> dict:
+    """Phase 3f: gpt2-medium at full width (24 layers, bf16, seed 0
+    weights) through the legacy ``ServeEngine``: greedy and sampled
+    generates at B = RING_BATCH, prompt RING_PROMPT, RING_NEW new tokens,
+    every decode step a replay of the ring's CUDA graph; the replay
+    ``torch.equal`` to an eager ``decode_step`` on a cloned ring, and
+    ``decode_step_layerwise`` ``torch.equal`` to ``decode_step``; the
+    launches a decode step (counters and profiler), the host syncs a
+    ``generate``; the prefill, the graph's and the layerwise loop's decode
+    step (wall and device ms) and tokens/s; the ``_prefill = None``
+    baseline at B = 1; greedy tokens against the continuous-batching
+    engine's on the same prompts (bf16: a reading).  Returns the
+    launches of the timed greedy generate."""
+    import torch
+
+    from repro_torch import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.sample import sample_block
+    from repro_torch.models import transformer as T
+    from repro_torch.models.decode_path import decode_step_layerwise
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     GenerationConfig, SamplingParams,
+                                     ServeEngine)
+
+    gpt2 = get_config("gpt2-medium")
+    cfg = dataclasses.replace(gpt2, monarch=dataclasses.replace(
+        gpt2.monarch, backend="pallas"))
+    params = T.init_params(cfg, seed=0, device=dev)
+    eng = ServeEngine(cfg, params, device=dev)
+    B, S, n = RING_BATCH, RING_PROMPT, RING_NEW
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    greedy = GenerationConfig(max_new_tokens=n)
+    runs = {"greedy": greedy,
+            "sampled": GenerationConfig(max_new_tokens=n,
+                                        temperature=SAMPLE_TEMPERATURE,
+                                        seed=0)}
+    eng.generate(prompts, greedy)          # captures the ring's graph
+    g = eng._decode.graphs
+    require(g.captures == 1 and g.buckets == [(B, eng.max_len)],
+            f"3f: one decode graph for the ring: {g.buckets}")
+    per_step = {"monarch_fused": 6 * cfg.n_layers, "sample_tokens": 1}
+    out: dict = {"model": "gpt2-medium", "dtype": cfg.dtype,
+                 "layers": cfg.n_layers, "B": B, "prompt": S,
+                 "new_tokens": n, "max_len": eng.max_len}
+    for name, gc in runs.items():
+        _sync(dev)
+        reset_launches()
+        replays = g.replays
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, gc)
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in launches().items() if v}
+        out[name] = {"seconds": dt, "tokens_per_s": B * n / dt,
+                     "launches": counts, "replays": g.replays - replays,
+                     "tokens": toks[:2].tolist()}
+        require(tuple(toks.shape) == (B, n) and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab,
+                f"3f {name}: tokens {tuple(toks.shape)} out of the vocab")
+        require(counts == {k: v * n for k, v in per_step.items()}
+                and g.replays - replays == n - 1,
+                f"3f {name}: launches {counts}, replays "
+                f"{g.replays - replays} (want {per_step} a step, {n - 1} "
+                f"replays)")
+        if name == "greedy":
+            greedy_toks, greedy_counts = toks, counts
+    # host syncs of a warmed generate: the one fetch of the tokens
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.generate(prompts, runs["sampled"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["host_syncs_per_generate"] = sum(
+        "called a synchronizing CUDA operation" in str(w.message)
+        for w in caught)
+    require(out["host_syncs_per_generate"] == 1,
+            f"3f: {out['host_syncs_per_generate']} host syncs a generate")
+    # the replay against an eager decode_step, and the layerwise step
+    # against decode_step, each on clones of the ring after a generate
+    ring = eng._rings[B]
+    tok = greedy_toks[:, -1].to(dev)
+    c_eager, c1, c2 = (tree_map(torch.clone, ring) for _ in range(3))
+    lg_graph, _ = eng._decode(eng.params, tok, ring)
+    lg_eager, _ = T.decode_step(eng.params, tok, c_eager, cfg)
+    lg_step, _ = T.decode_step(eng.params, tok, c1, cfg)
+    lg_layer, _ = decode_step_layerwise(eng.params, tok, c2, cfg)
+    _sync(dev)
+
+    def same_rings(a, b) -> bool:
+        la, lb = [], []
+        tree_map(la.append, a)
+        tree_map(lb.append, b)
+        return all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    out["replay_vs_eager"] = {"logits": torch.equal(lg_graph, lg_eager),
+                              "ring": same_rings(ring, c_eager)}
+    out["layerwise_vs_step"] = {"logits": torch.equal(lg_layer, lg_step),
+                                "ring": same_rings(c1, c2)}
+    require(all(out["replay_vs_eager"].values())
+            and all(out["layerwise_vs_step"].values()),
+            f"3f: replay vs eager {out['replay_vs_eager']}, layerwise vs "
+            f"step {out['layerwise_vs_step']}")
+    # readings: the prefill, a decode step as the graph's replay and as
+    # the layerwise loop (from the prefilled ring), launches a step
+    prompts_dev = prompts.to(dev, torch.int32)
+    pre = []
+    for _ in range(3):
+        cache = eng._ring(B)
+        _sync(dev)
+        t0 = time.perf_counter()
+        eng._prefill(eng.params, prompts_dev, cache)
+        _sync(dev)
+        pre.append((time.perf_counter() - t0) * 1e3)
+    out["prefill_ms"] = sorted(pre)[1]
+    eng._prefill(eng.params, prompts_dev, eng._ring(B))
+    reset_launches()
+    lg, _ = eng._decode(eng.params, tok, ring)
+    sample_block(lg, torch.zeros(B, device=dev),
+                 torch.zeros((1, 2), dtype=torch.int32, device=dev), False)
+    out["launches_per_decode_step"] = {k: v for k, v in launches().items()
+                                       if v}
+    require(out["launches_per_decode_step"] == per_step,
+            f"3f: a decode step launched {out['launches_per_decode_step']}")
+
+    def graph_step():
+        eng._decode(eng.params, tok, ring)
+
+    def layerwise_step():
+        decode_step_layerwise(eng.params, tok, ring, cfg)
+
+    out["decode_graph"] = _ring_window(dev, graph_step, 8)
+    out["decode_layerwise"] = _ring_window(dev, layerwise_step, 8)
+    for wname in ("decode_graph", "decode_layerwise"):
+        seen = out[wname]["kernels_per_step_profiled"]
+        require(seen["monarch_fused_kernel"] >= PROFILED_SHARE
+                * per_step["monarch_fused"],
+                f"3f {wname}: the profiler shows {seen} a step")
+    # the prompt token by token through the decode graph, B = 1
+    base = ServeEngine(cfg, params, device=dev)
+    base._prefill = None
+    base.generate(prompts[:1], greedy)     # captures the B = 1 graph
+    _sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    toks1 = base.generate(prompts[:1], greedy)
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in launches().items() if v}
+    out["no_prefill_B1"] = {
+        "seconds": dt, "tokens_per_s": n / dt,
+        "steps": S + n - 1, "ms_per_step": dt * 1e3 / (S + n - 1),
+        "launches": counts,
+        "tokens_equal_prefill_run": torch.equal(
+            toks1, eng.generate(prompts[:1], greedy))}
+    require(counts == {"monarch_fused": 6 * cfg.n_layers * (S + n - 1),
+                       "sample_tokens": n},
+            f"3f: the _prefill = None baseline ran {counts}")
+    del base
+    # the continuous-batching engine on the same prompts
+    cb = ContinuousBatchingEngine(cfg, params, **SERVE_KW)
+    reqs = [cb.add_request(p.numpy(), SamplingParams(max_new_tokens=n))
+            for p in prompts]
+    cb.run()
+    out["vs_continuous_batching"] = _ring_vs_paged(
+        eng, [list(r.output_tokens) for r in reqs], prompts_dev)
+    del cb
+    emit({"phase": "ring", **out})
+    return greedy_counts
+
+
+def _ring_nemotron(cfg, params, dev) -> dict:
+    """Phase 3c's ServeEngine: one greedy generate of nemotron-4-15b
+    (B = 8, prompt 64, 16 new tokens) on the serves' params, after a
+    warm-up that captures its decode graph: B1 and B2 (staged w1 and
+    w2), X3; the first GQA ring on the card."""
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving import GenerationConfig, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_len=128, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (8, 64),
+                            generator=torch.Generator().manual_seed(1))
+    gc = GenerationConfig(max_new_tokens=16)
+    eng.generate(prompts, gc)
+    _sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, gc)
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in launches().items() if v}
+    g = eng._decode.graphs
+    line = {"phase": "ring_nemotron", "B": 8, "prompt": 64, "new_tokens": 16,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+            "seconds": dt, "tokens_per_s": 8 * 16 / dt, "launches": counts,
+            "graphs": {"captures": g.captures, "replays": g.replays},
+            "tokens": toks[:2].tolist()}
+    emit(line)
+    require(tuple(toks.shape) == (8, 16) and int(toks.max()) < cfg.vocab
+            and counts.get("monarch_fused", 0) > 0
+            and counts.get("bdmm", 0) > 0
+            and counts.get("sample_tokens") == 16,
+            f"3c: the nemotron ServeEngine must run B1, B2 and X3: {line}")
+    return counts
+
+
+def _example_runs(dev) -> list:
+    """``python -m repro_torch.examples.serve_decode`` in-process on the
+    card (runpy): the default engine, then ``--engine legacy``; each must
+    end "serve OK" with B1's launches counted in its report."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.kernels import launches, reset_launches
+
+    out = []
+    for extra in ([], ["--engine", "legacy"]):
+        buf = io.StringIO()
+        argv = sys.argv
+        sys.argv = ["serve_decode", *extra]
+        reset_launches()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_module("repro_torch.examples.serve_decode",
+                                 run_name="__main__", alter_sys=True)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            sys.argv = argv
+        lines = buf.getvalue().strip().splitlines()
+        counts = {k: v for k, v in launches().items() if v}
+        line = {"phase": "example_serve_decode", "argv": extra, "exit": code,
+                "last": lines[-3:], "launches": counts}
+        emit(line)
+        require(code == 0 and lines[-1] == "serve OK"
+                and lines[-2].startswith("kernel launches:")
+                and counts.get("monarch_fused", 0) > 0,
+                f"serve_decode {extra} did not end its report through B1: "
+                f"{line}")
+        out.append(line)
+    return out
 
 
 def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
@@ -2855,6 +3217,47 @@ def main() -> int:
                     f"deterministic {again}, launches {n_launch}")
             if vname == "nemotron-4-15b" and draw:
                 x3_summary = line
+        # the legacy ServeEngine's block draw: one key for the whole (8,
+        # Vp) block, row b's column j from the flat count b * Vp + j, the
+        # key read and never split; greedy through the same kernel
+        bkey = PR.to_i32(PR.split(PR.prng_key(3))[1])[None].to(dev)
+        tb8 = torch.full((8,), SAMPLE_TEMPERATURE, device=dev)
+        same_noise = torch.equal(
+            SM.gumbel_noise(bkey, Vp, rows=8),
+            PR.gumbel(PR.from_i32(bkey.reshape(2)), 8 * Vp).reshape(8, Vp))
+        for draw in (True, False):
+            before = launches()["sample_tokens"]
+            ta = SM.sample_block(lg, tb8, bkey, draw)
+            n_launch = launches()["sample_tokens"] - before
+            same = torch.equal(ta, SM.sample_block_plain(lg, tb8, bkey,
+                                                         draw))
+            again = torch.equal(ta, SM.sample_block(lg, tb8, bkey, draw))
+            key_kept = torch.equal(bkey.cpu(), PR.to_i32(
+                PR.split(PR.prng_key(3))[1])[None])
+            on_cpu = SM.sample_block_plain(lg.cpu(), tb8.cpu(), bkey.cpu(),
+                                           draw)
+            bms, by = bound_ms(8 * Vp * 4 + 8 * (4 + 4) + 8,
+                               7 * 8 * Vp if draw else 0, False)
+            line = {"phase": "kernel", "kernel": "sample_tokens",
+                    "mode": "block", "vocab": vname, "V": Vp, "B": 8,
+                    "draw": draw, "launches_per_call": n_launch,
+                    "bitwise_noise_vs_plain": same_noise,
+                    "bitwise_tokens_vs_plain": same,
+                    "deterministic": again, "key_unchanged": key_kept,
+                    "tokens_equal_cpu_plain": torch.equal(ta.cpu(), on_cpu),
+                    "max_abs_err": 0.0,
+                    **timings(kernel=lambda: SM.sample_block(lg, tb8, bkey,
+                                                             draw),
+                              plain=lambda: SM.sample_block_plain(
+                                  lg, tb8, bkey, draw)),
+                    "library_ms": None, "library_card_ms": None,
+                    "bound_ms": bms, "bound_by": by}
+            emit(line)
+            require(same_noise and same and again and key_kept
+                    and n_launch == 1,
+                    f"sample_block V={Vp} draw={draw}: noise bitwise "
+                    f"{same_noise}, tokens bitwise {same}, deterministic "
+                    f"{again}, key kept {key_kept}, launches {n_launch}")
     summary["sample_tokens"] = summary_entry(
         x3_summary, x3_summary["bound_ms"], x3_summary["bound_by"])
     phase_done("2 kernels")
@@ -3229,6 +3632,7 @@ def main() -> int:
                                              "kv_store_kernel")),
                 f"nemotron int8 {wname} window: the profiler must show B4, "
                 f"B5, B6 and X2: {seen}")
+    _ring_nemotron(cfg_n, params, dev)
     del params
     torch.cuda.empty_cache()
     phase_done("3c nemotron serve")
@@ -3518,6 +3922,13 @@ def main() -> int:
     # -- 3e. fault-tolerant serving ---------------------------------------
     _phase_ft(dev)
     phase_done("3e fault-tolerant serving")
+
+    # -- 3f. the ring cache and the legacy ServeEngine (gpt2-medium at full
+    # width), then the serve_decode example's two engines ----------------
+    _phase_ring(dev)
+    torch.cuda.empty_cache()
+    _example_runs(dev)
+    phase_done("3f ring cache and ServeEngine")
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -3983,6 +4394,51 @@ def main() -> int:
     del snap_params
     phase_done("4 snapshot card <-> CPU")
 
+    # the fp32 ServeEngine (the ring cache) on the card and on the CPU:
+    # one prefill's and one decode step's logits within PARITY_REL_TOL,
+    # then identical greedy tokens; and each prompt of the plain trace
+    # alone through the card's ServeEngine, against the tokens the
+    # continuous-batching engine gave it in that trace
+    from repro_torch.serving import GenerationConfig, ServeEngine
+
+    ring_engines = {"cuda": ServeEngine(cfg32, p_gpu, max_len=128),
+                    "cpu": ServeEngine(cfg32, p_cpu, max_len=128,
+                                       device="cpu")}
+    rp = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32))
+    ring_lg: dict = {}
+    for d, se in ring_engines.items():
+        cache = se._ring(4)
+        lp, _ = se._prefill(se.params, rp.to(d), cache)
+        ring_lg[d] = [lp[:, :cfg.vocab].float().cpu()]
+    tok = torch.argmax(ring_lg["cpu"][0], -1).to(torch.int32)
+    for d, se in ring_engines.items():
+        ld, _ = T.decode_step(se.params, tok.to(d), se._rings[4], cfg32)
+        ring_lg[d].append(ld[:, :cfg.vocab].float().cpu())
+    ring_toks = {d: se.generate(rp, GenerationConfig(max_new_tokens=8))
+                 for d, se in ring_engines.items()}
+    ring_rel = [logit_err(a, b)[0]
+                for a, b in zip(ring_lg["cuda"], ring_lg["cpu"])]
+    cb_plain = card_runs[("parity_tokens", "plain")]["tokens"]
+    alone = [ring_engines["cuda"].generate(
+        np.asarray(p)[None], GenerationConfig(max_new_tokens=8))[0].tolist()
+        for p in plain_prompts]
+    emit({"phase": "parity_ring", "prefill_rel_err": ring_rel[0],
+          "decode_rel_err": ring_rel[1], "rel_tol": PARITY_REL_TOL,
+          "tokens_identical": torch.equal(ring_toks["cuda"],
+                                          ring_toks["cpu"]),
+          "tokens": ring_toks["cuda"].tolist(),
+          "vs_continuous_batching": {"ring": alone, "paged": cb_plain,
+                                     "identical": alone == cb_plain}})
+    require(max(ring_rel) <= PARITY_REL_TOL,
+            f"the fp32 ServeEngine: card vs CPU logits differ: {ring_rel}")
+    require(torch.equal(ring_toks["cuda"], ring_toks["cpu"]),
+            "the fp32 ServeEngine: card and CPU tokens differ")
+    require(alone == cb_plain, f"the fp32 ServeEngine's tokens differ from "
+            f"the continuous-batching engine's: {alone} vs {cb_plain}")
+    del ring_engines, ring_lg
+    phase_done("4 ring cache card <-> CPU")
+
     # -- 4b. int8 factors (fused QKV), fp32 KV: as exact as fp32 -------------
     q_gpu = prepare_decode_params(p_gpu, cfg32, fuse=True, bits=8)
     q_cpu = prepare_decode_params(p_cpu, cfg32, fuse=True, bits=8)
@@ -4177,9 +4633,9 @@ def main() -> int:
     phase_done("5a B7")
 
     # 5b. the tp = 1 runs on the card the ranks are held to: phase 4's fp32
-    # traces and phase 3's bf16 serve, and the traces again with fp32
-    # factors over int8 KV pages (phase 4c's had int8 factors, which
-    # tensor parallelism does not take)
+    # traces and phase 3's bf16 serve, the traces again with fp32 factors
+    # over int8 KV pages, and with int4 factors (phase 4b's and 4c's int8
+    # runs serve as theirs)
     del q_gpu, q_cpu
     fp32_traces = {t: (dict(page_size=16, use_paged_kernel=True, **kw),
                        [np.asarray(p) for p in prompts], stagger, 8)
@@ -4189,6 +4645,19 @@ def main() -> int:
     int8_base = _tp_rank(None, {"int8_kv": {"cfg": cfg32, "seed": 3,
                                             "traces": int8_traces}})
     int8_base = int8_base["int8_kv"]["traces"]
+    # the compressed decode path under tensor parallelism (prepared whole,
+    # then sharded): int8 and packed-int4 factors with fused QKV and
+    # up/gate over fp32 pages, and int8 factors over int8 pages; int8's
+    # tp = 1 runs are phase 4b's and 4c's, int4's run here
+    qtp_opts = {"int8_fused": dict(quantize="int8", fuse_projections=True),
+                "int4_fused": dict(quantize="int4", fuse_projections=True),
+                "int8_fused_int8_kv": qopts}
+    qtp_traces = {job: {t: ({**kw, **o}, *rest)
+                        for t, (kw, *rest) in fp32_traces.items()}
+                  for job, o in qtp_opts.items()}
+    int4_base = _tp_rank(None, {"int4_fused": {
+        "cfg": cfg32, "seed": 3, "traces": qtp_traces["int4_fused"],
+        "record": True}})["int4_fused"]["traces"]
     p32_sum = _checksum(p_gpu)
     # the tp = 1 snapshot the ranks restore at tp = 2: the plain trace
     # after 3 steps
@@ -4216,6 +4685,9 @@ def main() -> int:
         "fp32": {"cfg": cfg32, "seed": 3, "traces": fp32_traces,
                  "record": True},
         "int8_kv": {"cfg": cfg32, "seed": 3, "traces": int8_traces},
+        **{job: {"cfg": cfg32, "seed": 3, "traces": tr,
+                 "record": "int8_kv" not in job}
+           for job, tr in qtp_traces.items()},
         "bf16": {"cfg": cfg, "seed": 0, "profile": True, "traces": {
             "serve": ({**SERVE_KW, "pool_bytes": fp_serve["pool_bytes"]},
                       _serve_prompts(cfg.vocab, 8, 32, 256, 0), 0, 32)}},
@@ -4235,9 +4707,16 @@ def main() -> int:
           "max_memory_allocated": [r["max_memory_allocated"]
                                    for r in ranks]})
     bases = {"fp32": {t: card_runs[("parity_tokens", t)] for t in traces},
-             "int8_kv": int8_base, "bf16": {"serve": bf16_serve}}
-    checksums = {"fp32": p32_sum, "int8_kv": p32_sum,
-                 "bf16": bf16_serve["checksum"], "snapshot": p32_sum}
+             "int8_kv": int8_base, "bf16": {"serve": bf16_serve},
+             "int8_fused": {t: card_runs[("parity_tokens_int8_factors", t)]
+                            for t in traces},
+             "int4_fused": int4_base,
+             "int8_fused_int8_kv": {
+                 t: card_runs[("parity_tokens_int8_kv", t)] for t in traces}}
+    checksums = {job: p32_sum for job in jobs}
+    checksums["bf16"] = bf16_serve["checksum"]
+    # jobs held exactly to tp = 1 (fp32 pages); the others over int8 pages
+    exact_jobs = ("fp32", "int8_fused", "int4_fused")
     for job, spec in jobs.items():
         require(all(r[job]["checksum"] == checksums[job] for r in ranks),
                  f"tp {job}: the ranks initialized other weights")
@@ -4258,7 +4737,11 @@ def main() -> int:
                         "launches", "seconds", "tokens_per_s",
                         "pages_per_shard", "local_page_shape")}
                         for r in rs]}
-            if job == "fp32":
+            steps = rs[0]["stats"]["mixed_steps"]
+            line["launches_per_step"] = [
+                {k: v / steps for k, v in r["launches"].items() if v}
+                for r in rs]
+            if job in exact_jobs:
                 a, b = rs[0]["logits"], base["logits"]
                 same_steps = len(a) == len(b) and all(
                     x.shape == y.shape for x, y in zip(a, b))
@@ -4270,29 +4753,34 @@ def main() -> int:
             emit(line)
             require(line["ranks_identical"],
                     f"tp {job} {tname}: the ranks' tokens differ")
-            steps = rs[0]["stats"]["mixed_steps"]
-            span_k = ("paged_attention_span_sharded_q" if job == "int8_kv"
+            span_k = ("paged_attention_span_sharded_q" if "int8_kv" in job
                       else "paged_attention_span_sharded")
+            # B4 on fused QKV, wo, w1, w2; B1 on the six projections
+            mon_k, per_layer = (("monarch_fused_q", 4) if job in qtp_opts
+                                else ("monarch_fused", 6))
             for r in rs:
                 c = r["launches"]
                 require(r["stats"] == rs[0]["stats"],
                         f"tp {job} {tname}: the ranks' counters differ")
                 require(c[span_k] == cfg.n_layers * steps
-                        and c["monarch_fused"] == 6 * cfg.n_layers * steps
+                        and c[mon_k] == per_layer * cfg.n_layers * steps
+                        and sum(c[k] for k in ("monarch_fused",
+                                               "monarch_fused_q"))
+                        == c[mon_k]
                         and c["paged_attention_span"] == 0
                         and c["paged_attention_span_q"] == 0
-                        and c["bdmm"] == 0
+                        and c["bdmm"] == 0 and c["bdmm_q"] == 0
                         and r["stats"]["dense_fallbacks"] == 0,
                         f"tp {job} {tname}: launches {c} over {steps} steps")
-            if job == "fp32":
+            if job in exact_jobs:
                 require(toks == base["tokens"],
-                        f"tp fp32 {tname}: tokens differ from tp=1")
+                        f"tp {job} {tname}: tokens differ from tp=1")
                 require(line["max_step_rel_err"] <= PARITY_REL_TOL,
-                        f"tp fp32 {tname}: step logits differ: "
+                        f"tp {job} {tname}: step logits differ: "
                         f"{line['max_step_rel_err']}")
                 require(rs[0]["stats"] == base["stats"],
-                        f"tp fp32 {tname}: counters differ from tp=1")
-            elif job == "int8_kv":
+                        f"tp {job} {tname}: counters differ from tp=1")
+            elif "int8_kv" in job:
                 require(agree >= INT8_KV_TOKEN_AGREEMENT,
                         f"tp int8 KV {tname}: token agreement {agree}")
         if spec.get("profile"):

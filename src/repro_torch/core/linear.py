@@ -95,9 +95,6 @@ def linear_apply(params: dict[str, Any], x: torch.Tensor,
         if "b" in params:
             inner["b"] = params["b"]
         return linear_apply(inner, x, backend=backend, reduce=reduce)
-    if qn.is_quantized(params) and reduce is not None:
-        raise NotImplementedError(
-            "quantized factors under tensor parallelism are not ported yet")
     if qn.is_quantized(params):
         if backend == "pallas":
             from repro_torch.kernels import ops as kops  # lazy: avoid cycle

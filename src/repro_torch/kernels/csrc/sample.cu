@@ -17,6 +17,13 @@
 //           step draws, else argmax_j logit_j; ties to the first index
 //   k <- carry where the row samples this step
 //
+// A block draw (block = 1) is the legacy ServeEngine's
+// jax.random.categorical(key, logits / t) over the whole (B, V) block
+// under ONE key (src/repro/serving/engine.py:1149-1153): the key keys[0]
+// is the draw key as it is (no split), row b's column j takes the bits of
+// the flat count b * V + j (64 bits: hi, lo words), as jax's partitionable
+// threefry gives gumbel(key, (B, V)), and no key is written.
+//
 // IEEE division (__fdiv_rn) and logf (not __logf), no contraction: the
 // scores are bitwise those of the plain version on the card, whose
 // torch.log is logf and whose division is a tensor division.
@@ -77,9 +84,10 @@ __device__ __forceinline__ uint2 key_of(const int* keys, int b) {
                     static_cast<unsigned>(keys[2 * b + 1]));
 }
 
-// jax.random.gumbel (mode "low") at column j of a row with draw key d
-__device__ __forceinline__ float gumbel_at(uint2 d, unsigned j) {
-  const uint2 h = threefry(d, 0u, j);
+// jax.random.gumbel (mode "low") at the 64-bit count c under draw key d
+__device__ __forceinline__ float gumbel_at(uint2 d, unsigned long long c) {
+  const uint2 h = threefry(d, static_cast<unsigned>(c >> 32),
+                           static_cast<unsigned>(c));
   const unsigned bits = ((h.x ^ h.y) >> 9) | 0x3f800000u;
   const float tiny = 1.17549435e-38f;  // finfo(float32).tiny
   const float f = __fsub_rn(__uint_as_float(bits), 1.f);
@@ -104,20 +112,24 @@ __global__ void __launch_bounds__(NT)
     sample_partial_kernel(const float* __restrict__ logits, long long ld,
                           int V, const float* __restrict__ temps,
                           const int* __restrict__ keys, int draw,
-                          float* __restrict__ part_v,
+                          int block, float* __restrict__ part_v,
                           int* __restrict__ part_i) {
   const int b = blockIdx.y, c = blockIdx.x, n_chunks = gridDim.x;
   const float t = temps[b];
   const bool drawn = draw && t > 0.f;
   const float safe = fmaxf(t, 1e-6f);
-  const uint2 d = drawn ? threefry(key_of(keys, b), 0u, 0u) : make_uint2(0, 0);
+  const uint2 d = !drawn  ? make_uint2(0, 0)
+                  : block ? key_of(keys, 0)
+                          : threefry(key_of(keys, b), 0u, 0u);
+  const unsigned long long base =
+      block ? static_cast<unsigned long long>(b) * V : 0ull;
   const float* row = logits + b * ld;
   const int lo = c * CHUNK, hi = min(V, lo + CHUNK);
   float best = -INFINITY;
   int arg = INT_MAX;
   for (int j = lo + threadIdx.x; j < hi; j += NT) {
     float s = row[j];
-    if (drawn) s = __fadd_rn(gumbel_at(d, j), __fdiv_rn(s, safe));
+    if (drawn) s = __fadd_rn(gumbel_at(d, base + j), __fdiv_rn(s, safe));
     if (better(s, j, best, arg)) best = s, arg = j;
   }
   warp_best(best, arg);
@@ -142,7 +154,7 @@ __global__ void __launch_bounds__(32)
                         const int* __restrict__ part_i, int n_chunks,
                         int* __restrict__ keys,
                         const unsigned char* __restrict__ mask,
-                        int* __restrict__ tokens) {
+                        int block, int* __restrict__ tokens) {
   const int b = blockIdx.x;
   float best = -INFINITY;
   int arg = INT_MAX;
@@ -155,7 +167,7 @@ __global__ void __launch_bounds__(32)
   if (threadIdx.x == 0) {
     // a row whose scores are all NaN has no winner: index 0
     tokens[b] = arg == INT_MAX ? 0 : arg;
-    if (mask[b]) {
+    if (!block && mask[b]) {
       const uint2 carry = threefry(key_of(keys, b), 0u, 1u);
       keys[2 * b] = static_cast<int>(carry.x);
       keys[2 * b + 1] = static_cast<int>(carry.y);
@@ -164,12 +176,14 @@ __global__ void __launch_bounds__(32)
 }
 
 __global__ void __launch_bounds__(NT)
-    sample_noise_kernel(const int* __restrict__ keys, int V,
+    sample_noise_kernel(const int* __restrict__ keys, int V, int block,
                         float* __restrict__ noise) {
   const int b = blockIdx.y;
-  const uint2 d = key_of(keys, b);
+  const uint2 d = key_of(keys, block ? 0 : b);
   const int j = blockIdx.x * NT + threadIdx.x;
-  if (j < V) noise[(size_t)b * V + j] = gumbel_at(d, j);
+  const unsigned long long base =
+      block ? static_cast<unsigned long long>(b) * V : 0ull;
+  if (j < V) noise[(size_t)b * V + j] = gumbel_at(d, base + j);
 }
 
 }  // namespace
@@ -177,10 +191,12 @@ __global__ void __launch_bounds__(NT)
 // logits (B, V) fp32, columns contiguous, rows ld elements apart; temps (B,)
 // fp32; keys (B, 2) int32 words, split in place where mask (B,) bool is
 // set; tokens (B,) int32; scratch: B * ceil(V / CHUNK) floats, then as many
-// int32s.  draw 0: every row greedy (the keys still split).
+// int32s.  draw 0: every row greedy (the keys still split).  block 1: the
+// block draw under the one draw key keys[0] (2 words, never written; mask
+// unread, may be null).
 extern "C" int sample_launch(const void* logits, long long ld, int B, int V,
                              const void* temps, void* keys, const void* mask,
-                             int draw, void* tokens, void* scratch,
+                             int draw, int block, void* tokens, void* scratch,
                              void* stream) {
   if (B < 1 || V < 1 || ld < V || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -191,22 +207,24 @@ extern "C" int sample_launch(const void* logits, long long ld, int B, int V,
   sample_partial_kernel<<<dim3(n_chunks, B), NT, 0, st>>>(
       static_cast<const float*>(logits), ld, V,
       static_cast<const float*>(temps), static_cast<const int*>(keys), draw,
-      pv, pi);
+      block, pv, pi);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sample_merge_kernel<<<B, 32, 0, st>>>(
       pv, pi, n_chunks, static_cast<int*>(keys),
-      static_cast<const unsigned char*>(mask), static_cast<int*>(tokens));
+      static_cast<const unsigned char*>(mask), block,
+      static_cast<int*>(tokens));
   return static_cast<int>(cudaGetLastError());
 }
 
-// debug entry: noise (B, V) fp32, the Gumbel noise of draw keys (B, 2)
-extern "C" int sample_noise_launch(const void* keys, int B, int V,
+// debug entry: noise (B, V) fp32, the Gumbel noise of draw keys (B, 2), or
+// with block 1 of the block draw under the one key keys[0]
+extern "C" int sample_noise_launch(const void* keys, int B, int V, int block,
                                    void* noise, void* stream) {
   if (B < 1 || V < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   sample_noise_kernel<<<dim3((V + NT - 1) / NT, B), NT, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), V, static_cast<float*>(noise));
+      static_cast<const int*>(keys), V, block, static_cast<float*>(noise));
   return static_cast<int>(cudaGetLastError());
 }

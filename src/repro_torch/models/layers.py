@@ -19,7 +19,15 @@ int8 pool (``kv_dtype="int8"``) carries (P, KV) fp32 ``k_scales`` /
 chip by the int8 span kernel or on the gathered blocks by the dense
 fallback.
 
-MoE, the ring cache and cross-attention are not ported yet and raise
+The ring KV cache (``attention_cache_init``: (B, max_len, KV, hd) K and V
+a layer, the legacy ``ServeEngine``'s) is written in place too, row
+``b``'s S new rows at positions ``pos[b] + arange(S)``; as the
+reference's ``.at[].set`` does, a write at a position >= max_len is
+dropped (every query then attends the whole ring), and the attention is
+the dense ``_sdpa`` over the ring under the causal (and window) mask, with
+no kernel in either package.
+
+MoE and cross-attention are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -171,27 +179,35 @@ def attention_apply(
     backend: str = "einsum",
     plan=None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention without a cache, or over a paged KV cache
-    {"k_pages": (P,page,KV,hd), "v_pages": ...} addressed through
-    ``page_table`` (B, max_pages), with S >= 1 new tokens per row written
-    at ``pos[b] + arange(S)``.  ``span_len`` and ``write_start`` are as in
+    """Self-attention without a cache, over the ring cache {"k": (B, T,
+    KV, hd), "v": ...}, or over a paged KV cache {"k_pages": (P,page,KV,hd),
+    "v_pages": ...} addressed through ``page_table`` (B, max_pages), with
+    S >= 1 new tokens per row written at ``pos[b] + arange(S)`` (in place,
+    either cache).  ``span_len`` and ``write_start`` are as in
     ``repro.models.layers.attention_apply``.  Returns (out, cache).
 
     Under tensor parallelism (``plan``, a ``sharding.params.TPPlan``) the
     weights are this rank's slices: where the plan splits heads,
     ``wq``/``wk``/``wv`` are column-parallel over this rank's ``H / tp``
-    query heads (and ``KV / tp`` KV heads where the pool splits too), the
+    query heads (and ``KV / tp`` KV heads where the pool splits too; a
+    fused ``wqkv`` / ``wkv`` holds each part's slice side by side), the
     attention runs on those heads, and ``wo`` is row-parallel over them
     (one all-reduce)."""
     if kv_input is not None:
         raise NotImplementedError("cross-attention is not ported yet")
-    if cache is not None and "k_pages" not in cache:
-        raise NotImplementedError("the ring KV cache is not ported yet")
+    ring = cache is not None and "k_pages" not in cache
+    if ring and plan is not None:
+        raise ValueError("the ring KV cache serves one device: tensor "
+                         "parallelism serves through the paged pool")
     B, S, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dtype = x.dtype
 
-    if "wqkv" in params:
+    if plan is not None and plan.heads:     # this rank's heads
+        h //= plan.tp
+    if plan is not None and plan.kv_heads:
+        kv //= plan.tp
+    if "wqkv" in params:     # [q | k | v], each part this rank's slice
         qd, kd = h * hd, kv * hd
         qkv = linear_apply(params["wqkv"], x, backend=backend)
         q = qkv[..., :qd].reshape(B, S, h, hd)
@@ -203,11 +219,6 @@ def attention_apply(
         k = kvh[..., :kv * hd].reshape(B, S, kv, hd)
         v = kvh[..., kv * hd:].reshape(B, S, kv, hd)
     else:
-        if plan is not None and plan.heads:     # this rank's heads
-            h //= plan.tp
-        if plan is not None and plan.kv_heads:
-            kv //= plan.tp
-
         def proj(name, heads):
             y = linear_apply(params[name], x, backend=backend)
             return y.reshape(B, S, heads, hd)
@@ -227,7 +238,10 @@ def attention_apply(
         k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
 
     new_cache = None
-    if cache is not None:
+    if ring:
+        out, new_cache = _ring_attend(q, k, v, cache, q_pos, cfg, window,
+                                      dtype), cache
+    elif cache is not None:
         out, new_cache = _paged_attend(
             q, k, v, cache, page_table, q_pos, cfg, window, dtype,
             span_len=span_len, write_start=write_start, plan=plan)
@@ -263,6 +277,47 @@ def _local_kv(k: torch.Tensor, q: torch.Tensor, cfg: ModelConfig,
     idx = (plan.mesh.rank * H_loc
            + torch.arange(H_loc, device=k.device)) // g
     return k.index_select(k.dim() - 2, idx)
+
+
+def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                         device=None) -> dict:
+    """One layer's ring cache: K and V (batch, max_len, KV, hd), zeros."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _ring_attend(q, k, v, cache, q_pos, cfg: ModelConfig, window, dtype):
+    """Write the S new k/v rows of each row into the ring at ``q_pos``
+    (in place), then attend every query over the whole ring under its own
+    causal horizon (and window): the reference's ring branch
+    (``repro/models/layers.py:255-271``).
+
+    q: (B,S,H,hd); k/v: (B,S,KV,hd); cache k/v: (B,T,KV,hd); q_pos: (B,S).
+    A position >= T is dropped, as ``.at[].set`` drops it: its write is
+    sent to T - 1 carrying the value T - 1 ends with (this call's row for
+    T - 1 where it writes one, else the ring's own), so every duplicate
+    write of T - 1 writes one value and the scatter stays deterministic,
+    with no host sync and no shape that depends on the positions."""
+    ck, cv = cache["k"], cache["v"]
+    B, S = q_pos.shape
+    T = ck.shape[1]
+    j = torch.clamp(q_pos, max=T - 1)                  # the ring row written
+    start = q_pos[:, :1]
+    fresh = j >= start               # this call writes ring row j ...
+    src = torch.clamp(j - start, 0, S - 1)   # ... with its row j - start
+    rows = torch.arange(B, device=q.device)[:, None]
+    for c, new in ((ck, k), (cv, v)):
+        idx = src[..., None, None].expand(-1, -1, *new.shape[2:])
+        val = torch.where(fresh[..., None, None],
+                          torch.gather(new, 1, idx).to(c.dtype), c[rows, j])
+        c[rows, j] = val
+    kj = torch.arange(T, device=q.device)[None, None, :]
+    valid = kj <= q_pos[..., None]  # (B,S,T)
+    if window is not None:
+        valid &= (q_pos[..., None] - kj) < window
+    return _sdpa(q, ck, cv, valid[:, None, None], cfg.logit_softcap, dtype,
+                 fast_scores=cfg.fast_decode_scores)
 
 
 def paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
@@ -503,7 +558,8 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 __all__ = [
     "norm_init", "norm_apply", "rope",
-    "attention_init", "attention_apply", "paged_cache_init", "causal_mask",
+    "attention_init", "attention_apply", "attention_cache_init",
+    "paged_cache_init", "causal_mask",
     "ffn_init", "ffn_apply", "embedding_init", "embed", "unembed",
     "GLOBAL_WINDOW",
 ]

@@ -9,13 +9,18 @@ reference scans that axis, the port loops over it.
 Public API:
   init_params(cfg, seed, device)                  -> params
   forward(params, batch, cfg)                     -> (logits, aux)
+  init_decode_cache(cfg, batch, max_len, device)  -> cache (the ring)
+  decode_step(params, tokens, cache, cfg)         -> (logits, cache)
+  prefill(params, batch, cfg)                     -> last-position logits
+  prefill_with_cache(params, tokens, cache, cfg)  -> (logits, cache)
   init_paged_pool(cfg, n_pages, page_size, ...)   -> pool
   cow_copy_pages(pool, src, dst)                  -> pool (in place)
   paged_mixed_step(params, tokens, start, span_len, page_table, pool, cfg)
                                                   -> (logits, pool)
 
-SSM, hybrid, MoE and encoder-decoder stacks, the ring cache and training
-are not ported yet and raise ``NotImplementedError``.
+The ring cache and the paged pool are written in place: the reference
+donates them to its jitted steps.  SSM, hybrid, MoE and encoder-decoder
+stacks and training are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -160,6 +165,64 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True):
     return L.unembed(params["embedding"], x, cfg), aux
 
 
+# ---- serving through the ring cache (the legacy ServeEngine) --------------
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device: DeviceLike = None) -> dict:
+    """The ring cache of an attention stack, zeros:
+    {"layers": {"attn": {"k": (L, B, max_len, KV, hd), "v": ...}},
+    "pos": (B,) int32}, K and V in the model dtype."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    one = L.attention_cache_init(cfg, batch, max_len, _dtype(cfg),
+                                 device=dev)
+    return {"layers": {"attn": {name: a.new_zeros((cfg.n_layers, *a.shape))
+                                for name, a in one.items()}},
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
+                cfg: ModelConfig):
+    """One new token per batch row (``tokens`` (B,)) against the running
+    ring: its k/v rows are written at ``cache["pos"]`` and ``pos`` advances
+    by one, both in place.  Returns (fp32 logits (B, Vp), the same
+    cache)."""
+    dtype = _dtype(cfg)
+    pos = cache["pos"]
+    x = L.embed(params["embedding"], tokens[:, None], cfg, dtype)
+    x, _, _ = decoder_stack_apply(params["decoder"], x, cfg, cache=cache,
+                                  pos=pos)
+    x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
+    logits = L.unembed(params["embedding"], x, cfg)
+    pos.add_(1)
+    return logits[:, 0], cache
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The last position's logits of a full causal forward."""
+    logits, _ = forward(params, batch, cfg, train=False)
+    return logits[:, -1]
+
+
+def prefill_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
+                       cfg: ModelConfig):
+    """The whole (B, S) prompt block in ONE forward through the ring:
+    every layer writes its S k/v rows a row at ``pos`` (in place) and
+    ``pos`` advances by S.  Returns (last-position fp32 logits (B, Vp),
+    the same cache)."""
+    S = tokens.shape[1]
+    dtype = _dtype(cfg)
+    pos = cache["pos"]
+    x = L.embed(params["embedding"], tokens, cfg, dtype)
+    x, _, _ = decoder_stack_apply(params["decoder"], x, cfg, cache=cache,
+                                  pos=pos)
+    x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
+    logits = L.unembed(params["embedding"], x[:, -1:], cfg)
+    pos.add_(S)
+    return logits[:, 0], cache
+
+
 # ---- paged serving (continuous batching) ----------------------------------
 
 
@@ -233,7 +296,8 @@ def paged_mixed_step(params: dict, tokens: torch.Tensor, start: torch.Tensor,
 
 
 __all__ = [
-    "init_params", "forward", "init_paged_pool", "paged_mixed_step",
+    "init_params", "forward", "init_decode_cache", "decode_step", "prefill",
+    "prefill_with_cache", "init_paged_pool", "paged_mixed_step",
     "cow_copy_pages", "decoder_stack_init", "decoder_stack_apply",
     "attn_block_init", "attn_block_apply", "layer_params", "layer_windows",
 ]

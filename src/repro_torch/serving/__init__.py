@@ -5,7 +5,10 @@ The host side — request lifecycle, pool, scheduler, metrics, tracing — is
 a copy of ``repro.serving``'s jax-free modules, so both packages plan the
 same steps for the same traffic.  The device side is the port's own:
 ``engine.ContinuousBatchingEngine`` runs each iteration as one mixed
-forward through ``models.transformer.paged_mixed_step``.  The scheduler's
+forward through ``models.transformer.paged_mixed_step``, and the legacy
+``engine.ServeEngine`` serves one batch through the ring cache
+(``models.transformer.decode_step``, a CUDA graph a batch size on the
+card: ``ring_graphs``).  The scheduler's
 two step-pricing models, ``HBMCostModel`` (a weight-streaming roofline)
 and ``CIMCostModel`` (the paper's CIM simulator, ``repro_torch.cim``), are
 the reference's.
@@ -19,7 +22,7 @@ with health, failover, migration and quarantine (``replicas``).
 from repro_torch.serving.device_kv import (DeviceKV,  # noqa: F401
                                            kv_shard_size)
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: F401
-                                        GenerationConfig)
+                                        GenerationConfig, ServeEngine)
 from repro_torch.serving.faults import (DispatchFailure,  # noqa: F401
                                         FaultInjector, InjectedFault,
                                         SimulatedCrash,

@@ -33,7 +33,8 @@ identical traffic.  What carries over unchanged:
     ``kernels.ops.paged_dispatch`` the layers consult;
   * the compressed decode path: ``fuse_projections`` (exact QKV fusion)
     and ``quantize="int8"|"int4"`` (per-block factor quantization) are
-    applied once at load, on the engine's device
+    applied once at load, on the engine's device (under a mesh on the
+    whole tree where it lies, before it is sharded)
     (``models.decode_path.prepare_decode_params``), and
     ``kv_dtype="int8"`` stores the pool as int8 pages with per-(page, head)
     fp32 scales (``core.quant``).  The factors are dequantized on chip by
@@ -100,10 +101,17 @@ restore copies device state into the engine's own tensors, so its step
 graphs read the restored state.  Under a mesh every rank snapshots (the
 pages' export is a collective) and rank 0 alone writes the files.
 
-Still not ported (they raise ``NotImplementedError``): quantized or fused
-factors under a mesh (``quantize``/``fuse_projections`` with ``mesh=``),
-and a mesh whose ``"data"`` axis is > 1.  The legacy ``ServeEngine`` is
-not ported either.
+A mesh whose ``"data"`` axis is > 1 is not ported (it raises
+``NotImplementedError``): that axis carries data parallelism and FSDP,
+which come with training.
+
+:class:`ServeEngine` is the reference's legacy single-batch engine over
+the ring KV cache: one prefill of the whole prompt block
+(``transformer.prefill_with_cache``), then ``max_new_tokens - 1`` decode
+steps issued back to back, each a replay of one CUDA graph of
+``transformer.decode_step`` per batch size on the card
+(``serving.ring_graphs``), every token drawn by ``kernels.sample`` (X3),
+and one host fetch per ``generate``.
 """
 
 from __future__ import annotations
@@ -120,12 +128,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, resolve_device, tree_to
+from repro_torch import DeviceLike, resolve_device, tree_map, tree_to
 from repro_torch.core import prng
 from repro_torch.core.quant import (BITS_BY_NAME, KV_DTYPE_BYTES,
                                     kv_page_bytes)
 from repro_torch.kernels.paged import reserve_workspace
-from repro_torch.kernels.sample import sample_tokens
+from repro_torch.kernels.sample import sample_block, sample_tokens
 from repro_torch.models import transformer as T
 from repro_torch.models.decode_path import prepare_decode_params
 from repro_torch.models.config import ModelConfig
@@ -138,6 +146,7 @@ from repro_torch.serving.metrics import (Calibration, EngineStats,
                                          TOKEN_BUCKETS)
 from repro_torch.serving.request import (FinishReason, Request, RequestState,
                                          SamplingParams, Sequence)
+from repro_torch.serving.ring_graphs import RingDecode
 from repro_torch.serving.scheduler import (CostModel, IterationScheduler,
                                            SchedulerConfig, StepPlan)
 from repro_torch.serving.step_graphs import StepGraphs
@@ -271,10 +280,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"quantize must be one of {sorted(BITS_BY_NAME)} or None, "
                 f"got {quantize!r}")
-        if mesh is not None and (quantize or fuse_projections):
-            raise NotImplementedError(
-                "quantized or fused factors under tensor parallelism are "
-                "not ported yet")
         if use_paged_kernel:
             cfg = dataclasses.replace(cfg, paged_kernel=True)
         self.cfg = cfg
@@ -290,15 +295,19 @@ class ContinuousBatchingEngine:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
             self.device = mesh.device
-            self.plan = tp_plan(params, cfg, mesh)
-            params = shard_params(params, self.plan)
         else:
             self.device = resolve_device(device)
             params = tree_to(params, self.device)
         if fuse_projections or quantize:
+            # the whole tree, then its shards (the reference's order): a
+            # block's scale covers its whole slab, so a rank's factors
+            # carry the tp = 1 tree's scales
             params = prepare_decode_params(
                 params, cfg, fuse=fuse_projections,
                 bits=BITS_BY_NAME.get(quantize))
+        if mesh is not None:
+            self.plan = tp_plan(params, cfg, mesh)
+            params = shard_params(params, self.plan)
         self.params = params
         self.weight_bits = BITS_BY_NAME.get(quantize, 32)
         self.page_size = page_size
@@ -897,6 +906,7 @@ class ContinuousBatchingEngine:
         if self.step_graphs is not None:
             sampled, logits = self.step_graphs.run(bucket, packed,
                                                    self._upload)
+            sampled = sampled.clone()    # harvested after the next replay
         else:
             sampled, logits = self._step(self._upload(packed), bucket)
         self.step_logits, self.step_rows = logits, span > 0
@@ -1030,4 +1040,114 @@ class ContinuousBatchingEngine:
                               **engine_kw)
 
 
-__all__ = ["ContinuousBatchingEngine", "GenerationConfig"]
+class ServeEngine:
+    """Legacy single-batch engine over the ring KV cache (port of the
+    reference's ``ServeEngine``, ``repro/serving/engine.py:1124-1181``).
+
+    The whole prompt block prefills in ONE forward through the ring
+    (``_prefill``, ``transformer.prefill_with_cache``, eager); then all
+    ``max_new_tokens - 1`` decode steps (``_decode``,
+    ``serving.ring_graphs.RingDecode``: one CUDA graph of
+    ``transformer.decode_step`` a batch size on the card) are issued back
+    to back, each token drawn on the device by X3's block draw
+    (``kernels.sample.sample_block``), and the tokens are fetched to the
+    host once, where EOS trimming keeps the reference's rule.  With
+    ``_prefill = None`` the prompt runs token by token through
+    ``_decode``, as the reference's SSM path and its throughput baseline
+    run it.
+
+    Sampling is the reference's: greedy at ``temperature <= 0``, else
+    ``jax.random.categorical(key, logits / t)`` over the whole (B, Vp)
+    block under one key, the first token under ``PRNGKey(seed)`` itself
+    and every later one under ``sub`` after ``key, sub = split(key)``
+    (``core.prng``; the chain is computed on the host and uploaded once).
+
+    One ring a batch size is kept and zeroed at every ``generate`` (its
+    graph reads and writes it in place).  A position past ``max_len`` is
+    dropped from the ring, as the reference drops it."""
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
+                 device: DeviceLike = None):
+        if cfg.layer_kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.layer_kind} stacks are not ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = tree_to(params, self.device)
+        self.max_len = max_len
+        self._rings: dict[int, dict] = {}
+        self._decode = RingDecode(cfg, graphs=self.device.type == "cuda")
+        self._prefill = functools.partial(T.prefill_with_cache, cfg=cfg)
+
+    def _ring(self, batch: int) -> dict:
+        """The ring of ``batch`` rows, zeroed (``pos`` too)."""
+        cache = self._rings.get(batch)
+        if cache is None:
+            cache = self._rings[batch] = T.init_decode_cache(
+                self.cfg, batch, self.max_len, device=self.device)
+        else:
+            leaves: list = []
+            tree_map(leaves.append, cache)
+            for leaf in leaves:
+                leaf.zero_()
+        return cache
+
+    def _upload(self, host: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device without a host sync
+        (pinned, non-blocking)."""
+        if self.device.type == "cpu":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _draw_keys(self, seed: int, n: int) -> torch.Tensor:
+        """(n, 2) int32 draw keys: ``PRNGKey(seed)``, then the ``sub`` of
+        each ``key, sub = split(key)``."""
+        key = prng.prng_key(seed)
+        subs = [key]
+        for _ in range(n - 1):
+            key, sub = prng.split(key)
+            subs.append(sub)
+        return self._upload(prng.to_i32(torch.stack(subs)))
+
+    def generate(self, prompts, gen: GenerationConfig) -> torch.Tensor:
+        """prompts: (B, S_prompt) int -> (B, <= max_new_tokens) int32 on
+        the host."""
+        prompts = torch.as_tensor(prompts)
+        B, S = prompts.shape
+        if gen.max_new_tokens < 1:
+            return torch.zeros((B, 0), dtype=torch.int32)
+        n = gen.max_new_tokens
+        prompts = (self._upload(prompts.to(torch.int32))
+                   if prompts.device.type == "cpu"
+                   else prompts.to(self.device, torch.int32))
+        cache = self._ring(B)
+        draw = gen.temperature > 0.0
+        temps = torch.full((B,), float(gen.temperature), device=self.device)
+        if self._prefill is not None:
+            logits, cache = self._prefill(self.params, prompts, cache)
+        else:   # token by token through the decode step
+            logits = None
+            for t in range(S):
+                logits, cache = self._decode(self.params,
+                                             prompts[:, t].contiguous(),
+                                             cache)
+        # a greedy run reads no key: the draw keys are the sampled run's
+        keys = (self._draw_keys(gen.seed, n) if draw else
+                torch.zeros((n, 2), dtype=torch.int32, device=self.device))
+        tok = sample_block(logits, temps, keys[:1], draw)
+        outs = [tok]
+        for i in range(1, n):
+            logits, cache = self._decode(self.params, tok, cache)
+            tok = sample_block(logits, temps, keys[i:i + 1], draw)
+            outs.append(tok)
+        out = torch.stack(outs, dim=1).cpu()   # the one host fetch
+        if gen.eos_id is not None:
+            arr = out.numpy()
+            done = np.cumsum(arr == gen.eos_id, axis=1) > 0
+            cols = done.all(axis=0)
+            if cols.any():
+                out = out[:, :int(np.argmax(cols)) + 1]
+        return out
+
+
+__all__ = ["ContinuousBatchingEngine", "ServeEngine", "GenerationConfig"]

@@ -22,10 +22,10 @@ batch replays a graph without the draw, still with the key split):
   in place, so nothing is rebound.  All graphs share one memory pool and replay strictly in
   turn on one stream.
 * **Outputs.**  A graph's outputs are static: the next replay of the same
-  graph overwrites them.  The sampled tokens are read one step late (the
-  harvest lag), so :meth:`StepGraphs.run` returns a clone of them, taken on
-  the same stream right after the replay; the logits it returns are the
-  static tensor, valid until the bucket's next replay.
+  graph overwrites them, and :meth:`StepGraphs.run` returns them as they
+  are.  The engine reads its sampled tokens one step late (the harvest
+  lag), so it clones them on the same stream right after the run; the
+  logits stay the static tensor, valid until the bucket's next replay.
 * **Launch counts.**  ``kernels.LAUNCHES`` counts on the host, so a capture
   counts launches that never ran and a replay counts none.  The capture's
   counts are taken back and become the bucket's launches, which every
@@ -79,8 +79,7 @@ class CudaStepGraph:
 class _Bucket:
     graph: object
     inputs: torch.Tensor           # the static packed input buffer
-    sampled: torch.Tensor          # static outputs
-    logits: torch.Tensor
+    outputs: tuple                 # static outputs
     launches: dict[str, int]       # kernel launches a replay runs
     keep: tuple                    # buffers the graph's kernels use
 
@@ -113,11 +112,11 @@ class StepGraphs:
         return sorted(self._buckets)
 
     def run(self, S, packed: np.ndarray,
-            upload: Callable) -> tuple[torch.Tensor, torch.Tensor]:
+            upload: Callable) -> tuple:
         """One step of bucket ``S`` on the host's ``packed`` int32 buffer,
         moved to the card by ``upload(packed, out=None)`` (a new device
-        tensor, or a copy into ``out``).  Returns (sampled tokens, owned by
-        the caller; logits, valid until the bucket's next step)."""
+        tensor, or a copy into ``out``).  Returns the step's outputs, valid
+        until the bucket's next step."""
         b = self._buckets.get(S)
         if b is None:
             buf = upload(packed)
@@ -131,12 +130,12 @@ class StepGraphs:
         for name, n in b.launches.items():
             _build.LAUNCHES[name] += n
         self.replays += 1
-        return b.sampled.clone(), b.logits
+        return b.outputs
 
     def _capture(self, S, buf: torch.Tensor) -> None:
         before = dict(_build.LAUNCHES)
         graph = self._new_graph()
-        sampled, logits = graph.capture(lambda: self._step(buf, S))
+        outputs = tuple(graph.capture(lambda: self._step(buf, S)))
         launched = {name: n - before.get(name, 0)
                     for name, n in _build.LAUNCHES.items()
                     if n != before.get(name, 0)}
@@ -144,7 +143,7 @@ class StepGraphs:
             _build.LAUNCHES[name] -= n
         # the span kernel's workspace: a later, larger launch may replace
         # it, and the graph launches on it for as long as it lives
-        self._buckets[S] = _Bucket(graph, buf, sampled, logits, launched,
+        self._buckets[S] = _Bucket(graph, buf, outputs, launched,
                                    paged.workspaces())
         self.captures += 1
 

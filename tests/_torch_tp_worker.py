@@ -118,9 +118,9 @@ def serve_jobs(mesh, jobs: dict) -> dict:
                 "local_heads": {
                     k: int(v.shape[3 if v.ndim == 5 else 2])
                     for k, v in eng.pool["layers"]["attn"].items()},
-                "local_out": {k: int(v["R"].shape[-3] * v["R"].shape[-2])
-                              if "R" in v else int(v["w"].shape[-1])
-                              for k, v in attn.items()},
+                "local_out": {k: _out_width(v) for k, v in attn.items()},
+                "ffn_out": {k: _out_width(v) for k, v in
+                            eng.params["decoder"]["layers"]["ffn"].items()},
             }
             if tr.get("export"):
                 res[name]["export"] = _export(eng, mesh, cfg, tr)
@@ -129,6 +129,14 @@ def serve_jobs(mesh, jobs: dict) -> dict:
     out["jax_or_reference_loaded"] = sorted(
         m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
     return out
+
+
+def _out_width(lin: dict) -> int:
+    """A (stacked) linear's output width on this rank: Monarch ``R`` or
+    quantized ``Rq`` (q, s, k), or dense ``w``."""
+    r = lin.get("R", lin.get("Rq"))
+    return int(r.shape[-3] * r.shape[-2]) if r is not None else int(
+        lin["w"].shape[-1])
 
 
 def _export(eng, mesh, cfg, tr) -> dict:
@@ -247,21 +255,41 @@ def run_faults(engine_cls, injector_cls, sampling_cls, check, job: dict,
                 "dispatch_failures", "preemptions", "timeouts")}}
 
 
+def qrow_inputs():
+    """x (3, 64) and a Monarch pair L (4, 4, 16), R (4, 16, 4), seeded."""
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn(3, 64, generator=g), torch.randn(4, 4, 16, generator=g),
+            torch.randn(4, 16, 4, generator=g))
+
+
 def collectives(mesh) -> dict:
-    """One of each collective on rank-dependent values."""
+    """One of each collective on rank-dependent values, and a
+    row-parallel quantized linear (int8 and int4: this rank's slices of
+    the whole quantized pair, its input columns, one all-reduce)."""
+    from repro_torch.core.linear import linear_apply
+    from repro_torch.core.quant import quantize_monarch
     from repro_torch.sharding import api
+    from repro_torch.sharding.params import TPPlan, shard_params
 
     torch.set_num_threads(1)
 
     r = mesh.rank
     x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * r
-    return {
+    out = {
         "sum": api.all_reduce_sum(x, mesh),
         "sum_bf16": api.all_reduce_sum(x.to(torch.bfloat16), mesh),
         "gather": api.all_gather_cat(x, mesh, dim=-1),
         "time": api.broadcast_time(100.0 + r, mesh),
         "x": x,
     }
+    xq, L, R = qrow_inputs()
+    cols = xq.shape[-1] // mesh.model
+    for bits in (8, 4):
+        tree = {"attn": {"wo": quantize_monarch({"L": L, "R": R}, bits)}}
+        local = shard_params(tree, TPPlan(mesh, heads=True))["attn"]["wo"]
+        out[f"qrow{bits}"] = linear_apply(
+            local, xq[:, r * cols:(r + 1) * cols], reduce=mesh)
+    return out
 
 
 def fail_on_rank_one(mesh) -> None:

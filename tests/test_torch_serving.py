@@ -15,6 +15,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.serving as jserving
 import repro_torch.serving as tserving
@@ -125,6 +126,14 @@ def model():
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                            device="cpu")
     return jc, tc, jp, tp
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
 
 
 def _prompts(vocab):
@@ -298,12 +307,35 @@ def test_generate_compat_and_not_ported_options(model):
                                 {"fuse_projections": True},
                                 {"quantize": "int4",
                                  "fuse_projections": True}])
-def test_mesh_with_quantized_or_fused_factors_is_not_ported(model, kw):
-    """Tensor parallelism serves float factors only: a mesh together with
-    quantized or fused factors raises before anything is sharded."""
+def test_mesh_with_quantized_or_fused_factors_is_not_ported(model, kw,
+                                                           monkeypatch):
+    """Tensor parallelism takes quantized and fused factors: a mesh engine
+    prepares the whole tree first and holds this rank's slices of it
+    (``shard_params`` of the prepared tree, bitwise), so each block keeps
+    the tp = 1 tree's scale.  Building the engine's only collective is
+    the clock's broadcast, answered here by this rank alone; the served
+    ranks are in tests/test_torch_tp_serving.py."""
+    from repro_torch.core.quant import BITS_BY_NAME
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.decode_path import prepare_decode_params
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.sharding.params import shard_params, tp_plan
 
     _, tc, _, tp = model
-    mesh = Mesh(model=2, rank=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tserving.ContinuousBatchingEngine(tc, tp, mesh=mesh, **kw)
+    mesh = dataclasses.replace(Mesh(model=2, rank=1, device="cpu"),
+                               group=object(), host_group=object())
+    monkeypatch.setattr(engine_mod, "broadcast_time", lambda t, m: t)
+    eng = tserving.ContinuousBatchingEngine(tc, tp, mesh=mesh, **kw)
+    whole = prepare_decode_params(tp, tc,
+                                  fuse=kw.get("fuse_projections", False),
+                                  bits=BITS_BY_NAME.get(kw.get("quantize")))
+    plan = tp_plan(whole, tc, mesh)
+    assert eng.plan == plan and all(plan.groups().values())
+    want = dict(_leaves(shard_params(whole, plan)))
+    got = dict(_leaves(eng.params))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert torch.equal(got[path], leaf), path
+    attn = eng.params["decoder"]["layers"]["attn"]
+    assert ("wqkv" in attn) == bool(kw.get("fuse_projections"))
+    assert ("Lq" in attn["wo"]) == ("quantize" in kw)

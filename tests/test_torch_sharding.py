@@ -39,7 +39,8 @@ from repro.core.quant import dequantize_kv_pages
 from repro_torch.configs import get_config
 from repro_torch.core.linear import MonarchSpec, linear_apply
 from repro_torch.core.monarch import make_dims
-from repro_torch.core.quant import quantize_monarch
+from repro_torch.core.quant import (quantize_monarch, quantize_tree,
+                                    unpack_int4)
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.ops import paged_dispatch
 from repro_torch.kernels.paged import (paged_attention_span,
@@ -47,8 +48,9 @@ from repro_torch.kernels.paged import (paged_attention_span,
 from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT, Mesh, run_ranks
 from repro_torch.models import transformer as TT
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.decode_path import prepare_decode_params
 from repro_torch.serving.device_kv import DeviceKV, kv_shard_size
-from repro_torch.sharding.params import shard_params, spec_for, tp_plan
+from repro_torch.sharding.params import shard_params, split_parts, tp_plan
 
 ROOT = Path(__file__).resolve().parents[1]
 WIN = 1_000_000_000
@@ -240,9 +242,23 @@ CONFIGS = {
     "dense": ModelConfig(name="d", **SMALL),
     "gqa": ModelConfig(name="g", monarch=MonarchSpec(enable=True, min_dim=64),
                        **{**SMALL, "n_kv_heads": 2}),
+    "dense_gqa": ModelConfig(name="dg", **{**SMALL, "n_kv_heads": 2}),
     "gated_bias": ModelConfig(name="s", ffn_type="swiglu",
                               norm_type="rmsnorm", **SMALL),
 }
+# prepared trees (models.decode_path.prepare_decode_params on the whole
+# tree, as the engine prepares before it shards): name -> (the tree it is
+# prepared from, fuse, bits)
+PREPARED = {
+    "monarch_int8_fused": ("monarch", True, 8),     # wqkv, int8
+    "monarch_int4_fused": ("monarch", True, 4),     # wqkv, packed int4
+    "gqa_int8_fused": ("gqa", True, 8),             # wq + wkv
+    "gated_bias_fused": ("gated_bias", True, None),  # dense w1g with a bias
+    # dense wqkv [q | k | v] of unequal widths (8 : 2 : 2 heads)
+    "dense_gqa_fused": ("dense_gqa", True, None),
+}
+CONFIGS.update({name: CONFIGS[base] for name, (base, _, _) in
+                PREPARED.items()})
 
 
 def _leaves(tree, prefix=""):
@@ -263,10 +279,25 @@ def trees():
             layers["ffn"]["w1"]["b"] = torch.randn(2, cfg.d_ff)
             layers["attn"]["wo"]["b"] = torch.randn(2, cfg.d_model)
         out[name] = p
+    for name, (base, fuse, bits) in PREPARED.items():
+        out[name] = prepare_decode_params(out[base], CONFIGS[base],
+                                          fuse=fuse, bits=bits)
     return out
 
 
 RULE_CASES = [(c, tp) for c in CONFIGS for tp in (2, 4)]
+# a fused leaf's slice is its parts' slices side by side
+FUSED = ("wqkv", "wkv", "w1g")
+
+
+def _local_shape(path, leaf, plan) -> list:
+    """``leaf``'s shape on a rank: each splitting part's width over tp."""
+    shape = list(leaf.shape)
+    sp = split_parts(path, leaf.shape, plan)
+    if sp is not None:
+        ax, parts = sp
+        shape[ax] = sum(w // plan.tp if split else w for w, split in parts)
+    return shape
 
 
 @pytest.mark.parametrize("cfg_name,tp", RULE_CASES)
@@ -277,10 +308,7 @@ def test_shard_params_shapes_per_rank(trees, cfg_name, tp):
         local = dict(_leaves(shard_params(full, tp_plan(full, cfg,
                                                         _mesh(tp, r)))))
         for path, leaf in _leaves(full):
-            ax = spec_for(path, plan)
-            want = list(leaf.shape)
-            if ax is not None:
-                want[ax] //= tp
+            want = _local_shape(path, leaf, plan)
             assert list(local[path].shape) == want, path
             assert local[path].is_contiguous()
 
@@ -293,10 +321,119 @@ def test_rank_slices_rebuild_the_full_tree(trees, cfg_name, tp):
                                                      _mesh(tp, r)))))
              for r in range(tp)]
     for path, leaf in _leaves(full):
-        ax = spec_for(path, plan)
-        got = (ranks[0][path] if ax is None
-               else torch.cat([rk[path] for rk in ranks], dim=ax))
+        sp = split_parts(path, leaf.shape, plan)
+        if sp is None:
+            got = ranks[0][path]
+        else:   # each part's slices, then the parts side by side
+            ax, parts = sp
+            assert (len(parts) > 1) == any(f in path.split("/")
+                                           for f in FUSED)
+            got, at = [], 0
+            for w, split in parts:
+                n = w // tp if split else w
+                got += ([rk[path].narrow(ax, at, n) for rk in ranks]
+                        if split else [ranks[0][path].narrow(ax, at, n)])
+                at += n
+            got = torch.cat(got, dim=ax)
         assert torch.equal(got, leaf), path
+
+
+def test_prepared_trees_split_like_their_float_factors(trees):
+    """The prepared trees split every group the float tree splits, the
+    scales with their blocks: a column split keeps ``Ls`` whole, a row
+    split ``Rs``."""
+    for name, (base, _, _) in PREPARED.items():
+        for tp in (2, 4):
+            cfg = CONFIGS[name]
+            plan = tp_plan(trees[name], cfg, _mesh(tp))
+            assert plan == tp_plan(trees[base], cfg, _mesh(tp)), (name, tp)
+    plan = tp_plan(trees["monarch_int8_fused"], CONFIGS["monarch"],
+                   _mesh(2))
+    attn = "decoder/layers/attn"
+    leaves = dict(_leaves(trees["monarch_int8_fused"]))
+
+    def parts(path):
+        return split_parts(path, leaves[path].shape, plan)
+
+    # 16 q-blocks a part here: three equal parts on the block axis
+    assert leaves[f"{attn}/wqkv/Lq"].shape[-2] == 3 * 16
+    assert parts(f"{attn}/wqkv/Lq") == (-2, ((16, True),) * 3)
+    assert parts(f"{attn}/wqkv/Ls") is None
+    assert parts(f"{attn}/wqkv/Rs") == (-3, ((16, True),) * 3)
+    assert parts(f"{attn}/wo/Ls") == (-3, ((16, True),))
+    assert parts(f"{attn}/wo/Rq") == (-1, ((16, True),))
+    assert parts(f"{attn}/wo/Rs") is None
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_dense_gqa_fused_qkv_splits_by_head_counts(trees, tp):
+    """A dense GQA ``wqkv`` is [q (8 heads) | k (2) | v (2)]: each part is
+    cut at its own width, so a rank holds its q heads and, where the pool
+    splits (tp = 2), its k and v heads, else the whole k and v."""
+    cfg, full = CONFIGS["dense_gqa_fused"], trees["dense_gqa_fused"]
+    hd, path = cfg.hd, "decoder/layers/attn/wqkv/w"
+    w = dict(_leaves(full))[path]
+    q, k, v = w.split([8 * hd, 2 * hd, 2 * hd], dim=-1)
+    kv_split = tp == 2
+    for r in range(tp):
+        plan = tp_plan(full, cfg, _mesh(tp, r))
+        assert plan.heads and plan.kv_heads == kv_split
+        got = dict(_leaves(shard_params(full, plan)))[path]
+        kh = 2 // tp if kv_split else 2
+        want = [q[..., r * 8 // tp * hd:(r + 1) * 8 // tp * hd]] + [
+            x[..., r * kh * hd:(r + 1) * kh * hd] if kv_split else x
+            for x in (k, v)]
+        assert torch.equal(got, torch.cat(want, dim=-1)), r
+
+
+def test_single_part_leaves_keep_their_whole_width():
+    """Only a fused leaf is cut in the ratio of its parts' head counts: a
+    GQA model's own ``wq`` (6 : 2 heads) splits its 4 blocks 2 a rank."""
+    cfg = ModelConfig(name="h6", d_model=96, n_layers=1, n_heads=6,
+                      n_kv_heads=2, d_ff=128, vocab=512, dtype="float32")
+    wq = {"L": torch.randn(1, 4, 4, 24), "R": torch.randn(1, 4, 24, 4)}
+    tree = {"decoder": {"layers": {"attn": {"wq": wq}}}}
+    path = "decoder/layers/attn/wq/L"
+    plan = tp_plan(tree, cfg, _mesh(2))
+    assert plan.heads
+    assert split_parts(path, wq["L"].shape, plan) == (-2, ((4, True),))
+    for r in range(2):
+        got = shard_params(tree, tp_plan(tree, cfg, _mesh(2, r)))
+        assert torch.equal(got["decoder"]["layers"]["attn"]["wq"]["L"],
+                           wq["L"][:, :, 2 * r:2 * r + 2])
+
+
+def test_int4_row_split_keeps_each_packed_pair_on_one_rank():
+    """int4 packs two k values a byte along a row-parallel ``Rq``'s last
+    axis: a split needs k/tp even, so k = 6 blocks at tp = 2 (3 a rank)
+    leave the group whole in int4 and split it in int8."""
+    odd = {"decoder": {"layers": {"ffn": {
+        "w1": {"L": torch.randn(2, 4, 6, 32), "R": torch.randn(2, 6, 8, 4)},
+        "w2": {"L": torch.randn(2, 6, 4, 8), "R": torch.randn(2, 4, 32, 6)},
+    }}}}
+    cfg = CONFIGS["dense"]
+    assert tp_plan(quantize_tree(odd, 8), cfg, _mesh(2)).mlp
+    q4 = quantize_tree(odd, 4)
+    assert tuple(q4["decoder"]["layers"]["ffn"]["w2"]["Rq"].shape) == (
+        2, 4, 32, 3)
+    assert not tp_plan(q4, cfg, _mesh(2)).mlp
+    # k = 8 blocks: 4 a rank, two whole bytes each
+    even = {"decoder": {"layers": {"ffn": {
+        "w2": {"L": torch.randn(2, 8, 4, 8), "R": torch.randn(2, 4, 32, 8)},
+    }}}}
+    q4 = quantize_tree(even, 4)
+    plan = tp_plan(q4, cfg, _mesh(2))
+    assert plan.mlp
+    ranks = [shard_params(q4, tp_plan(q4, cfg, _mesh(2, r)))
+             for r in range(2)]
+    w2 = q4["decoder"]["layers"]["ffn"]["w2"]
+    got = torch.cat([r["decoder"]["layers"]["ffn"]["w2"]["Rq"]
+                     for r in ranks], dim=-1)
+    assert torch.equal(got, w2["Rq"])
+    # each rank's packed bytes unpack to its own k columns
+    for r, rk in enumerate(ranks):
+        mine = unpack_int4(rk["decoder"]["layers"]["ffn"]["w2"]["Rq"])
+        assert torch.equal(mine, unpack_int4(w2["Rq"])[..., 4 * r:4 * r + 4])
 
 
 def test_plan_and_divisibility_guard(trees):
@@ -320,9 +457,11 @@ def test_plan_and_divisibility_guard(trees):
     assert g.kv_shard == 1 and g.pool_replicated
     # a row-parallel bias is added once, after the all-reduce: whole
     plan = tp_plan(trees["gated_bias"], CONFIGS["gated_bias"], _mesh(2))
-    assert spec_for("decoder/layers/attn/wo/b", plan) is None
-    assert spec_for("decoder/layers/ffn/w1/b", plan) == -1
-    assert spec_for("decoder/layers/ln1/scale", plan) is None
+    d, ff = CONFIGS["gated_bias"].d_model, CONFIGS["gated_bias"].d_ff
+    assert split_parts("decoder/layers/attn/wo/b", (2, d), plan) is None
+    assert split_parts("decoder/layers/ffn/w1/b", (2, ff), plan) == (
+        -1, ((ff, True),))
+    assert split_parts("decoder/layers/ln1/scale", (2, d), plan) is None
     # a Monarch block count the axis does not divide keeps the group whole
     odd = {"decoder": {"layers": {"ffn": {
         "w1": {"L": torch.zeros(2, 4, 6, 32), "R": torch.zeros(2, 6, 8, 4)},
@@ -372,10 +511,7 @@ def test_gpt2_medium_splits_as_megatron_pairs_at_tp2():
     }
     total = local = 0
     for path, leaf in _leaves(tree):
-        ax = spec_for(path, plan)
-        shape = list(leaf.shape)
-        if ax is not None:
-            shape[ax] //= 2
+        shape = _local_shape(path, leaf, plan)
         if path in want:
             assert tuple(shape) == want[path], path
         if "decoder" in path:
@@ -407,12 +543,18 @@ def test_paged_dispatch_under_tensor_parallelism(trees):
             64, 16, pool_replicated=plan.pool_replicated) == want, (name, tp)
 
 
-def test_linear_column_slice_and_quantized_row_refusal():
-    x = torch.randn(3, 64)
-    L, R = torch.randn(4, 4, 16), torch.randn(4, 16, 4)
-    with pytest.raises(NotImplementedError):
-        linear_apply(quantize_monarch({"L": L, "R": R}, bits=8), x,
-                     reduce=_mesh(2))
+def test_linear_column_slice_and_quantized_row_refusal(gloo_world):
+    """A column-parallel linear is the smaller Monarch of its output
+    blocks; a row-parallel quantized one (int8 and packed int4, each
+    rank's ``Lq``/``Ls``/``Rq`` slice and the whole ``Rs``) summed over a
+    gloo world is the tp = 1 linear: the same products, the two ranks'
+    partial sums added once (fp32, another order: 1e-6)."""
+    x, L, R = W.qrow_inputs()
+    for bits in (8, 4):
+        want = linear_apply(quantize_monarch({"L": L, "R": R}, bits=bits), x)
+        for r in gloo_world:
+            torch.testing.assert_close(r[f"qrow{bits}"], want, rtol=1e-6,
+                                       atol=1e-6)
     # column-parallel is the smaller Monarch of this rank's output blocks
     y = linear_apply({"L": L, "R": R}, x)
     y0 = linear_apply({"L": L[:, :2].contiguous(), "R": R[:2].contiguous()},

@@ -232,10 +232,11 @@ def test_launch_counts_read_as_eager_under_replay():
         assert _build.LAUNCHES["monarch_fused"] - before == 3
         assert torch.equal(sampled, torch.full((2,), 2 * i, dtype=torch.int32))
         assert torch.equal(logits, torch.full((2,), i + 1, dtype=torch.int32))
-    # the sampled tokens are the caller's: the next replay leaves them
+    # the outputs are static: the next replay overwrites them (the engine
+    # clones the sampled tokens it harvests a step later)
     kept, _ = g.run(8, np.full(2, 5, np.int32), upload)
     g.run(8, np.full(2, 9, np.int32), upload)
-    assert torch.equal(kept, torch.full((2,), 10, dtype=torch.int32))
+    assert torch.equal(kept, torch.full((2,), 18, dtype=torch.int32))
     assert (g.captures, g.replays, g.buckets) == (1, 5, [8])
     _build.reset_launches()
 

@@ -74,6 +74,18 @@ def _traces(vocab):
         "budget": dict(engine=dict(max_slots=2, page_size=8, max_len=32,
                                    pool_bytes=1 << 20, use_paged_kernel=True),
                        prompts=W.prompts(vocab, 2, seed=2), max_new=4),
+        # the compressed decode path, prepared whole and then sharded:
+        # fused QKV (or K/V) and up/gate, int8 or packed-int4 factors
+        "int8_fused": dict(engine={**base, "quantize": "int8",
+                                   "fuse_projections": True},
+                           prompts=W.prompts(vocab, 4, seed=6), max_new=8),
+        "int4_fused": dict(engine={**base, "quantize": "int4",
+                                   "fuse_projections": True},
+                           prompts=W.prompts(vocab, 4, seed=7), max_new=8),
+        "int8_fused_int8_kv": dict(
+            engine={**base, "quantize": "int8", "fuse_projections": True,
+                    "kv_dtype": "int8"},
+            prompts=W.prompts(vocab, 4, seed=8), max_new=8),
     }
 
 
@@ -99,16 +111,31 @@ def _step_inputs():
 
 
 JOBS = {
-    # name: (configs, seed, traces at tp=2, tp)
+    # name: (configs, seed, traces (None: all), tp)
     "monarch": (_configs("tp_test", True), 0, None, 2),
     "dense": (_configs("tp_test_dense", False), 0,
-              ("plain", "preemption", "prefix_cow", "int8_kv"), 2),
+              ("plain", "preemption", "prefix_cow", "int8_kv",
+               "int8_fused"), 2),
+    # GQA at tp=2: the 2 KV heads split, so the fused [k | v] splits part
+    # by part, and the pool with them
+    "gqa_tp2": (_configs("tp_gqa", True, n_kv_heads=2), 1,
+                ("int8_fused",), 2),
     # tp=4: MHA through B7 on 2 heads a rank; GQA whose 2 KV heads the
-    # axis does not divide: the pool stays whole on every rank
+    # axis does not divide: the pool (and a fused wkv) stays whole on
+    # every rank
     "monarch_tp4": (_configs("tp_test", True), 0, ("plain", "preemption"), 4),
     "gqa_tp4": (_configs("tp_gqa", True, n_kv_heads=2), 1,
-                ("plain", "prefix_cow"), 4),
+                ("plain", "prefix_cow", "int8_fused"), 4),
+    # dense GQA: the fused wqkv is [q | k | v] at 8 : 2 : 2 heads (int8
+    # leaves dense weights float); its KV heads split at tp=2, stay whole
+    # at tp=4
+    "dense_gqa_tp2": (_configs("tp_gqa_dense", False, n_kv_heads=2), 1,
+                      ("int8_fused",), 2),
+    "dense_gqa_tp4": (_configs("tp_gqa_dense", False, n_kv_heads=2), 1,
+                      ("int8_fused",), 4),
 }
+# jobs whose KV heads the axis does not divide: the pool stays whole
+WHOLE_POOL = ("gqa_tp4", "dense_gqa_tp4")
 
 
 def _np_params(jcfg, seed):
@@ -192,8 +219,7 @@ def reference(runs):
 
 
 CASES = [(job, name) for job, (_, _, names, _) in JOBS.items()
-         for name in (names or ("plain", "preemption", "prefix_cow",
-                                "int8_kv", "budget"))]
+         for name in (names or tuple(_traces(SHAPE["vocab"])))]
 
 
 @pytest.mark.parametrize("job,trace", CASES)
@@ -223,7 +249,7 @@ def test_every_rank_plans_and_counts_alike(worlds, reference, job, trace):
         assert want["prefix_hit_tokens"] > 0 and want["cow_forks"] > 0
 
 
-@pytest.mark.parametrize("job", [j for j in JOBS if j != "gqa_tp4"])
+@pytest.mark.parametrize("job", [j for j in JOBS if j not in WHOLE_POOL])
 def test_split_pool_runs_the_sharded_kernel_every_step(worlds, job):
     for res in worlds[job]:
         for trace, r in res.items():
@@ -233,7 +259,7 @@ def test_split_pool_runs_the_sharded_kernel_every_step(worlds, job):
             assert st["kernel_dispatches"] == st["mixed_steps"] > 0, trace
             assert st["dense_fallbacks"] == 0, trace
             assert r["kv_shard"] == r["tp"] == JOBS[job][3]
-            heads = SHAPE["n_kv_heads"] // r["tp"]
+            heads = JOBS[job][0][1].n_kv_heads // r["tp"]
             assert set(r["local_heads"].values()) == {heads}
 
 
@@ -241,8 +267,9 @@ def test_gqa_pool_stays_whole_while_weights_split(worlds):
     """n_kv_heads = 2 at tp = 4: the pool is whole on every rank and
     attention takes the dense gather ("gqa_replicated" every step), while
     the query heads, the FFN and the vocab still split."""
+    hd = SHAPE["d_model"] // SHAPE["n_heads"]
     for res in worlds["gqa_tp4"]:
-        for trace in ("plain", "prefix_cow"):
+        for trace in ("plain", "prefix_cow", "int8_fused"):
             r = res[trace]
             st = r["stats"]
             assert r["tp"] == 4 and r["kv_shard"] == 1
@@ -250,10 +277,36 @@ def test_gqa_pool_stays_whole_while_weights_split(worlds):
             assert st["dense_fallback_gqa_replicated"] == \
                 st["mixed_steps"] > 0
             assert set(r["local_heads"].values()) == {2}
-            hd = SHAPE["d_model"] // SHAPE["n_heads"]
             assert r["local_out"]["wq"] == 2 * hd          # 8 heads / 4
-            assert r["local_out"]["wk"] == 2 * hd          # whole: 2 KV
+            if trace == "int8_fused":                      # whole [k | v]
+                assert r["local_out"]["wkv"] == 2 * 2 * hd
+            else:
+                assert r["local_out"]["wk"] == 2 * hd      # whole: 2 KV
             assert r["local_out"]["wo"] == SHAPE["d_model"]
+
+
+def test_fused_factors_split_part_by_part(worlds):
+    """A rank's fused projection is each part's slice side by side: at
+    tp = 2 the MHA ``wqkv`` holds 4 of each of q, k and v's 8 heads, the
+    GQA ``wkv`` 1 of each of k and v's 2, the FFN's ``w1g`` half of up and
+    half of gate; a dense GQA ``wqkv`` cuts each part at its own width."""
+    hd = SHAPE["d_model"] // SHAPE["n_heads"]
+    for res in worlds["monarch"]:
+        for trace in ("int8_fused", "int4_fused", "int8_fused_int8_kv"):
+            out = res[trace]["local_out"]
+            assert out["wqkv"] == 3 * 4 * hd and out["wo"] == SHAPE[
+                "d_model"]
+            assert res[trace]["ffn_out"]["w1g"] == SHAPE["d_ff"]
+    for res in worlds["gqa_tp2"]:
+        out = res["int8_fused"]["local_out"]
+        assert out["wq"] == 4 * hd and out["wkv"] == 2 * hd
+        assert res["int8_fused"]["kv_shard"] == 2
+    # dense GQA [q | k | v]: 4 + 1 + 1 heads at tp = 2, 2 + 2 + 2 at tp =
+    # 4 (the KV heads whole)
+    for job, kv_shard in (("dense_gqa_tp2", 2), ("dense_gqa_tp4", 1)):
+        for res in worlds[job]:
+            assert res["int8_fused"]["local_out"]["wqkv"] == 6 * hd
+            assert res["int8_fused"]["kv_shard"] == kv_shard
 
 
 @pytest.mark.parametrize("job", list(JOBS))
@@ -333,7 +386,6 @@ def test_ranks_load_no_jax_and_no_reference(worlds, tp):
 def test_tp_engine_refuses_what_is_not_ported():
     from repro_torch.launch.mesh import Mesh, make_host_mesh
 
-    tcfg = _configs("tp_test", True)[1]
     with pytest.raises(NotImplementedError, match="data"):
         Mesh(model=2, data=2, device="cpu")
     with pytest.raises(NotImplementedError, match="data"):
@@ -347,9 +399,6 @@ def test_tp_engine_refuses_what_is_not_ported():
                        device="cpu")
     with pytest.raises(ValueError, match="rank"):
         Mesh(model=2, rank=2, device="cpu")
-    mesh = Mesh(model=2, rank=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(tcfg, {}, mesh=mesh, quantize="int8")
 
 
 def test_tp_engine_runs_only_on_a_joined_mesh_on_its_device():
