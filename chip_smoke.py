@@ -13,8 +13,9 @@ Phases, each printed as one JSON object per line:
               with each kernel's registers and spills from ptxas
   2. kernels  B2/B5 (bdmm, bdmm_q) at their call sets first: both stages
               of a 128-block decode layer, of the 4096 x 4096 128-block
-              pair and of nemotron-4-15b's and codeqwen1.5-7b's staged
-              feed-forward pairs, bf16 x, fp32 / int8 / int4 weights, T = 8
+              pair and of nemotron-4-15b's, codeqwen1.5-7b's and
+              gemma2-27b's staged feed-forward projections, bf16 x, fp32 /
+              int8 / int4 weights (gemma2's B2 also with fp32 x), T = 8
               and 512, each line with both stages' launches
               (kernels/bdmm.py:bdmm_geometry), two launches torch.equal and
               B5 torch.equal to B2 on the dequantized blocks (``--calls``
@@ -48,7 +49,13 @@ Phases, each printed as one JSON object per line:
               noise and tokens torch.equal to its plain version at
               gpt2-medium's and nemotron-4-15b's vocabularies, and its
               block draw (sample_block: one key for the whole (8, Vp)
-              block, the legacy ServeEngine's) likewise
+              block, the legacy ServeEngine's) likewise; B1/B4 over a
+              mixture-of-experts layer's stacked experts (2m: one launch
+              a projection, the expert a second grid axis) at
+              qwen2-moe-a2.7b's and granite-moe-1b-a400m's expert call
+              sets, decode and prefill rows, bf16 and fp32 x, each
+              torch.equal to a loop of single-expert launches, B4 bitwise
+              B1 on the dequantized factors
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels, each
@@ -84,7 +91,7 @@ Phases, each printed as one JSON object per line:
               then one greedy ServeEngine generate (B = 8, prompt 64, 16
               new tokens; the first GQA ring on the card: B1, B2, X3)
   3d. paper   the paper's pipeline: gpt2-medium:dense (fp32, seed 0, full
-              width) D2S-converted on the card (core/d2s.py: q, k, v, o,
+              width, 12 of its 24 layers) D2S-converted on the card (core/d2s.py: q, k, v, o,
               w1, w2) and on the CPU from the same dense tensors, every
               matrix within D2S_REL_TOL card vs CPU, with the card's
               seconds; the converted model served (B1, B3, X3, graphs)
@@ -139,6 +146,20 @@ Phases, each printed as one JSON object per line:
               part and the ring's logit margin there); then ``python -m
               repro_torch.examples.serve_decode`` in-process, the default
               engine and ``--engine legacy``, each report through B1
+  3g. moe     qwen2-moe-a2.7b (60 experts in 64 slots, top-4, 4 shared)
+              and granite-moe-1b-a400m (32 experts, top-8) at full width
+              and depth, bf16, seed 0, served through the step graphs
+              (qwen2 also with int8 factors and fused projections), each
+              with a profiled window whose launches a layer are checked:
+              the experts' projections one expert-batched launch each;
+              gemma2-27b at full width and depth (46 layers: sandwich
+              norms, local/global windows, softcaps: its attention takes
+              the dense gather, its FFN B2) served and profiled likewise;
+              then each cut to 2 layers in fp32, card vs CPU: one mixed
+              step's MoE routes (the kept experts of every token) compared
+              first, a difference allowed only at a printed near tie,
+              then its logits within PARITY_REL_TOL, and a greedy trace's
+              routes and tokens
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
@@ -195,6 +216,7 @@ CUDA device and never imports JAX or the reference package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -236,6 +258,10 @@ INT8_KV_STEP_REL_TOL = 3e-2
 # differ by that rounding (~1e-7); an fp32 SVD would differ by ~1e-5 at
 # 32 x 32 slices that nearly tie
 D2S_REL_TOL = 1e-5
+# layers of the D2S-converted gpt2-medium (phase 3d): half its 24, which
+# keeps the run inside its time as phases are added (over 24 layers the
+# host's side of the conversion alone takes one to three minutes)
+D2S_LAYERS = 12
 # the CPU side of the nemotron-4-15b layer's D2S check: every 16th row of
 # (p x s) slices of each matrix (the slices project independently)
 D2S_NEMOTRON_CPU_EVERY = 16
@@ -279,7 +305,14 @@ RING_NEW = 32
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
            "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
            "paged_attention_span_sharded", "paged_attention_span_sharded_q",
-           "quantize_kv_write", "sample_tokens")
+           "quantize_kv_write", "sample_tokens", "monarch_fused_experts",
+           "monarch_fused_q_experts")
+# B1/B4 over a mixture-of-experts layer's stacked experts: the reference
+# runs the same Pallas kernels under jax.vmap over the expert axis
+VMAPPED = {"monarch_fused_experts": "src/repro/models/layers.py:600",
+           "monarch_fused_q_experts": "src/repro/models/layers.py:600"}
+# the MoE configs of phase 3g and of B1/B4's expert call sets (2m)
+MOE_ARCHS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
 # quantize_kv_write and sample_tokens replace jnp code that XLA compiles
 # into the reference's jitted step, not Pallas kernels
 JNP_KERNELS = ("quantize_kv_write", "sample_tokens")
@@ -294,6 +327,8 @@ REPLACES = {
     "paged_attention_span_sharded_q": "src/repro/kernels/paged.py:240",
     "quantize_kv_write": "src/repro/core/quant.py:238",
     "sample_tokens": "src/repro/serving/engine.py:119",
+    "monarch_fused_experts": "src/repro/kernels/monarch.py:58",
+    "monarch_fused_q_experts": "src/repro/kernels/monarch.py:115",
 }
 SOURCES = {
     "monarch_fused": "src/repro_torch/kernels/csrc/monarch.cu",
@@ -306,12 +341,16 @@ SOURCES = {
     "paged_attention_span_sharded_q": "src/repro_torch/kernels/csrc/paged.cu",
     "quantize_kv_write": "src/repro_torch/kernels/csrc/kv_write.cu",
     "sample_tokens": "src/repro_torch/kernels/csrc/sample.cu",
+    "monarch_fused_experts": "src/repro_torch/kernels/csrc/monarch.cu",
+    "monarch_fused_q_experts": "src/repro_torch/kernels/csrc/monarch.cu",
 }
 # the profiler's kernel names (substrings) and the launch counters that
 # count them: each counted launch of quantize_kv_write is one
 # kv_store_kernel (with a memset and two more kernels before it), each of
 # sample_tokens one sample_partial_kernel (and one merge after it)
-PROFILED = {"monarch_fused_kernel": ("monarch_fused", "monarch_fused_q"),
+PROFILED = {"monarch_fused_kernel": ("monarch_fused", "monarch_fused_q",
+                                     "monarch_fused_experts",
+                                     "monarch_fused_q_experts"),
             "bdmm_": ("bdmm", "bdmm_q"),
             "paged_span_kernel": ("paged_attention_span",
                                   "paged_attention_span_q",
@@ -321,21 +360,34 @@ PROFILED = {"monarch_fused_kernel": ("monarch_fused", "monarch_fused_q"),
             "sample_partial_kernel": ("sample_tokens",)}
 # the least share of a window's counted launches the profiler must show
 PROFILED_SHARE = 0.9
+# readings of that witness a window may take: torch.profiler drops a
+# kernel record now and then (a family with one launch a step then reads
+# 7 of 8), so a family short of PROFILED_SHARE is read again over as many
+# later steps, and its best reading is the witness: one dropped record
+# fails a reading, not the run, while a family whose counted launches do
+# not run reads short every time
+WITNESS_READINGS = 3
 # ranks of the tensor-parallel phase: processes that share the one card
 TP = 2
 # B2/B5's call sets: the projections (din, dout) whose factors take the
-# staged branch, and their blocks (None: make_dims' paper policy)
+# staged branch, their blocks (None: make_dims' paper policy) and how many
+# leading projections the quantized decode path fuses into one (B5's
+# lines take the fused one)
 BDMM_CALL_SETS = {
     # (a) one gpt2-medium decode layer at 128 blocks (B5: QKV fused)
     "a_gpt2_layer_nb128": ([(1024, 1024)] * 4 + [(1024, 4096),
-                                                 (4096, 1024)], 128),
+                                                 (4096, 1024)], 128, 3),
     # (b) the 4096 x 4096 pair at 128 blocks
-    "b_4096x4096_nb128": ([(4096, 4096)], 128),
+    "b_4096x4096_nb128": ([(4096, 4096)], 128, 0),
     # (c), (d) nemotron-4-15b's FFN (d_model 6144, d_ff 24576)
-    "c_nemotron_w1": ([(6144, 24576)], None),
-    "d_nemotron_w2": ([(24576, 6144)], None),
+    "c_nemotron_w1": ([(6144, 24576)], None, 0),
+    "d_nemotron_w2": ([(24576, 6144)], None, 0),
     # (e) codeqwen1.5-7b's FFN down projection (d_ff 13440, d_model 4096)
-    "e_codeqwen_w2": ([(13440, 4096)], None),
+    "e_codeqwen_w2": ([(13440, 4096)], None, 0),
+    # (f), (g) gemma2-27b's GeGLU FFN (d_model 4608, d_ff 36864), as phase
+    # 3g serves it: w1 and wg (B5: fused into w1g), then w2
+    "f_gemma2_w1_wg": ([(4608, 36864)] * 2, None, 2),
+    "g_gemma2_w2": ([(36864, 4608)], None, 0),
 }
 
 
@@ -455,12 +507,10 @@ def _window(eng, n_steps: int, watch: tuple = ()) -> dict:
                for w in watch}
     # launches a step: the counters (a graph's replay adds its capture's),
     # and the kernels the profiler saw by name, a reading: it can drop a
-    # kernel record now and then, eager or replayed
+    # kernel record now and then, eager or replayed (_witness reads again)
     per_step = {c: (counted[c] - counted0.get(c, 0)) / n_steps
                 for c in counted if counted[c] != counted0.get(c, 0)}
-    profiled = {name: [sum(r[2] for r in rows if name in r[1]) / n_steps,
-                       sum(per_step.get(c, 0) for c in ctrs)]
-                for name, ctrs in PROFILED.items()}
+    profiled = _seen_vs_counted(rows, per_step, n_steps)
     # the host's own time: each step issued with the card idle, less the
     # graph replay's launch and the harvest's wait for the card (the
     # sampled tokens' copy waits for every launch queued before it, the
@@ -497,6 +547,13 @@ def _window(eng, n_steps: int, watch: tuple = ()) -> dict:
     torch.cuda.synchronize()
     syncs = sum("called a synchronizing CUDA operation" in str(w.message)
                 for w in caught)
+    graphs = None
+    if g:
+        graphs = {"captures": g.captures - graphs0[0],
+                  "replays": g.replays - graphs0[1],
+                  "replay_host_ms_per_step": replay / n_steps * 1e3,
+                  "buckets": g.buckets}
+    profiled, readings = _witness(eng, n_steps, profiled)
     out = {"wall_ms_per_step": wall * 1e3,
            "device_ms_per_step": device,
            "device_busy_share": device / (wall * 1e3),
@@ -506,15 +563,65 @@ def _window(eng, n_steps: int, watch: tuple = ()) -> dict:
            "host_syncs_per_step": syncs / n_steps,
            "launches_per_step": per_step,
            "launches_per_step_profiled_vs_counted": profiled,
+           "witness_readings": readings,
            "watched_ms_launches_per_step": watched,
            "top_kernels_ms_per_step": [
                [name[:70], ms, n / n_steps] for ms, name, n in rows[:8]]}
-    if g:
-        out["graphs"] = {"captures": g.captures - graphs0[0],
-                         "replays": g.replays - graphs0[1],
-                         "replay_host_ms_per_step": replay / n_steps * 1e3,
-                         "buckets": g.buckets}
+    if graphs:
+        out["graphs"] = graphs
     return out
+
+
+def _seen_vs_counted(rows, per_step: dict, n_steps: int) -> dict:
+    """Each kernel family's launches a step: [as the profiler saw them
+    (``rows`` of (ms, name, launches)), as the counters counted them]."""
+    return {name: [sum(r[2] for r in rows if name in r[1]) / n_steps,
+                   sum(per_step.get(c, 0) for c in ctrs)]
+            for name, ctrs in PROFILED.items()}
+
+
+def _short(profiled: dict) -> list:
+    return [k for k, (seen, counted) in profiled.items()
+            if seen < PROFILED_SHARE * counted]
+
+
+def _witness(eng, n_steps: int, first: dict) -> tuple[dict, int]:
+    """The profiler's witness of the counters, ``first`` the window's own
+    reading: while a family reads short of ``PROFILED_SHARE``, up to
+    ``WITNESS_READINGS`` readings in all, the next ``n_steps`` steps are
+    profiled again (each against its own counted launches) and each short
+    family keeps its best reading.  Returns (witness, readings taken)."""
+    import torch
+
+    from repro_torch.kernels import launches
+
+    def any_short() -> bool:
+        # a mesh's ranks step together: every rank reads again when any
+        # rank reads short (one all-reduce of a host flag)
+        short = float(bool(_short(best)))
+        if getattr(eng, "mesh", None) is None:
+            return bool(short)
+        from repro_torch.sharding.api import all_reduce_sum
+
+        flag = all_reduce_sum(torch.tensor([short], device=eng.mesh.device),
+                              eng.mesh)
+        return bool(flag.item() > 0)
+
+    best, readings = dict(first), 1
+    while readings < WITNESS_READINGS and any_short():
+        c0 = launches()
+        by_key = _profile_steps(eng.step, n_steps, torch.cuda.synchronize)
+        c1 = launches()
+        per_step = {c: (c1[c] - c0.get(c, 0)) / n_steps for c in c1}
+        rows = [(us, key, n) for key, (us, n) in by_key.items()]
+        again = _seen_vs_counted(rows, per_step, n_steps)
+        for k in _short(best):
+            seen, counted = again[k]
+            if seen / max(counted, 1e-9) > best[k][0] / max(best[k][1],
+                                                             1e-9):
+                best[k] = again[k]
+        readings += 1
+    return best, readings
 
 
 def _profile_serve(cfg, params, watch: tuple = (), **engine_kw) -> dict:
@@ -524,7 +631,8 @@ def _profile_serve(cfg, params, watch: tuple = (), **engine_kw) -> dict:
     window replays without a capture, its launches a step are those of
     an eager step of its bucket (:func:`_eager_launches`); eager or
     replayed, the profiler shows at least ``PROFILED_SHARE`` of each
-    kernel family's counted launches."""
+    kernel family's counted launches in one of up to ``WITNESS_READINGS``
+    readings (:func:`_witness`)."""
     import numpy as np
 
     from repro_torch.serving import ContinuousBatchingEngine, SamplingParams
@@ -550,7 +658,8 @@ def _profile_serve(cfg, params, watch: tuple = (), **engine_kw) -> dict:
                 f"step, not 1")
         # the card's own witness of the counters, eager or replayed: the
         # profiler may drop a record now and then (>= 0.978 of the counted
-        # launches in every H100 run so far), never a family's launches
+        # launches in every H100 run so far), so a short family is read
+        # again (_witness); a family whose launches do not run stays short
         for kname, (seen, counted) in w[
                 "launches_per_step_profiled_vs_counted"].items():
             require(seen >= PROFILED_SHARE * counted,
@@ -934,14 +1043,20 @@ def _replay_vs_eager(eng) -> dict:
     and scale ``torch.equal``.  A float pool's sink page (page 0) is left out: the
     padding rows' writes collide there, and an index_put on the card
     resolves duplicates in no fixed order (the int8 pool's kernel does,
-    so its sink is compared too).  The engine's pool takes the replay's
-    writes: it is not served after this."""
+    so its sink is compared too).  The logits are compared on every row
+    where the span kernel runs (it writes a row without a span as zeros);
+    where a softcap sends attention to the dense gather (gemma2-27b), on
+    the rows with a span only: a row without one has no output (its
+    logits are garbage in both packages) and its query attends the sink
+    page, whose colliding writes differ between runs.  The engine's pool
+    takes the replay's writes: it is not served after this."""
     import torch
 
     from repro_torch import tree_map
 
     g = _graphs(eng)
     out = {}
+    all_rows = eng._kernel_decision() != "softcap"
     for S, packed in sorted(g.inputs_seen.items()):
         pool = tree_map(torch.clone, eng.pool)
         tok = eng._tok.clone()
@@ -957,8 +1072,13 @@ def _replay_vs_eager(eng) -> dict:
         pages = all(torch.equal(a[:, 1:], b[:, 1:])
                     if a.dim() == 5 and a.dtype != torch.int8
                     else torch.equal(a, b) for a, b in zip(mine, pools))
+        B = eng.max_slots
+        Sb = S[0] if isinstance(S, tuple) else S
+        spans = torch.from_numpy(packed[B * Sb + B:B * Sb + 2 * B] > 0).to(
+            l_g.device)
+        rows = slice(None) if all_rows else spans
         out[str(S)] = {"sampled": torch.equal(s_g, s_e),
-                       "logits": torch.equal(l_g, l_e),
+                       "logits": torch.equal(l_g[rows], l_e[rows]),
                        "token": torch.equal(eng._tok, tok),
                        "keys": torch.equal(eng._keys, keys),
                        "pages_and_scales": pages,
@@ -1925,6 +2045,300 @@ def _example_runs(dev) -> list:
     return out
 
 
+# -- phase 3g: mixture of experts and sandwich norms -------------------------
+
+def _moe_rows(mc, tokens: int) -> int:
+    """Rows each expert computes in a step of ``tokens`` tokens: the
+    routing groups times the capacity (models/layers.py:moe_apply)."""
+    sg = min(mc.group_size, tokens)
+    while tokens % sg:
+        sg //= 2
+    cap = max(4, int(mc.capacity_factor * sg * mc.top_k / mc.n_experts))
+    return tokens // sg * cap
+
+
+@contextlib.contextmanager
+def _recording_routes(into: list):
+    """Every ``moe_apply`` call's route on the host, in call order: the
+    router's probabilities (G, s, E), its top-k slots and the kept (token,
+    expert) pairs after capacity (G, s, E), from ``layers._route`` and
+    ``layers._dispatch`` (wrapped for the block; eager steps only)."""
+    from repro_torch.models import layers as L
+
+    route, dispatch = L._route, L._dispatch
+
+    def rec_route(logits, mc):
+        out = route(logits, mc)
+        into.append({"probs": out[0].float().cpu(), "idx": out[2].cpu(),
+                     "k": mc.top_k})
+        return out
+
+    def rec_dispatch(idx, gates, E, cap, dtype):
+        d, c = dispatch(idx, gates, E, cap, dtype)
+        into[-1]["kept"] = (d.float().sum(-1) > 0).cpu()
+        return d, c
+
+    L._route, L._dispatch = rec_route, rec_dispatch
+    try:
+        yield into
+    finally:
+        L._route, L._dispatch = route, dispatch
+
+
+def _route_check(card: list, cpu: list, what: str) -> dict:
+    """The card's routes against the CPU's, call by call.  A token's route
+    differs where its kept experts differ.  Until the first difference
+    the two sides' router probabilities must agree within
+    PARITY_REL_TOL; a difference must be a near tie within the call's
+    margin, twice the largest probability difference card vs CPU.  A
+    token whose top-k set differs is held to the CPU's k-th and (k+1)-th
+    probabilities.  A token with the same top-k set lost or won a
+    capacity slot through another token of its routing group, so it is
+    held to the smallest gap there: the k-th to (k+1)-th gap of a token
+    whose set differs, the closest two adjacent top-k probabilities of a
+    token whose order differs.  After the first difference every later
+    call is downstream of it and only reported.  Returns the report;
+    fails on a difference that is not a near tie."""
+    import torch
+
+    require(len(card) == len(cpu), f"{what}: {len(card)} MoE calls on the "
+            f"card, {len(cpu)} on the CPU")
+    out = {"calls": len(card), "max_prob_diff": 0.0, "differences": [],
+           "first_difference": None}
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        dp = float((a["probs"] - b["probs"]).abs().max())
+        margin = 2 * dp
+        differs = (a["kept"] != b["kept"]).any(-1)               # (G, s)
+        upstream = out["first_difference"] is not None
+        if not upstream:
+            out["max_prob_diff"] = max(out["max_prob_diff"], dp)
+            require(dp <= PARITY_REL_TOL, f"{what}: MoE call {i}: router "
+                    f"probabilities {dp} apart card vs CPU")
+        if not bool(differs.any()):
+            continue
+        k = a["k"]
+        srt = torch.sort(b["probs"], dim=-1, descending=True).values
+        gap_k = srt[..., k - 1] - srt[..., k]                     # (G, s)
+        adj = (srt[..., :k - 1] - srt[..., 1:k]).amin(-1) if k > 1 \
+            else torch.full_like(gap_k, math.inf)
+        own = (a["idx"].sort(-1).values != b["idx"].sort(-1).values).any(-1)
+        order = (a["idx"] != b["idx"]).any(-1)
+        # each token's own tie: its set's, else its order's, else none
+        tie = torch.where(own, gap_k, torch.where(
+            order, adj, torch.full_like(gap_k, math.inf)))       # (G, s)
+        for g, t in differs.nonzero().tolist():
+            if bool(own[g, t]):
+                gap, kind = float(gap_k[g, t]), "top_k"
+            else:      # the same k experts, a capacity slot went elsewhere
+                gap, kind = float(tie[g].min()), "capacity"
+            near = gap <= margin
+            out["differences"].append({
+                "call": i, "group": g, "token": t, "kind": kind,
+                "gap": gap, "margin": margin, "near_tie": near,
+                "downstream": upstream})
+            require(near or upstream, f"{what}: MoE call {i} token {t}: "
+                    f"the route differs card vs CPU without a near tie "
+                    f"(gap {gap}, margin {margin})")
+        if out["first_difference"] is None:
+            out["first_difference"] = i
+    return out
+
+
+def _moe_step(params, cfg, d, toks, spans, table):
+    """One mixed step of phase 4's geometry on device ``d``: the real
+    vocab's fp32 logits on the CPU."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    B = toks.shape[0]
+    pool = T.init_paged_pool(cfg, 1 + table.size, 16, device=d)
+    lg, _ = T.paged_mixed_step(
+        params, torch.from_numpy(toks).to(d),
+        torch.zeros(B, dtype=torch.int32, device=d),
+        torch.from_numpy(spans).to(d), torch.from_numpy(table).to(d), pool,
+        cfg)
+    return lg[:, :cfg.vocab].float().cpu()
+
+
+def _moe_parity(cfg, dev, seed: int = 3) -> dict:
+    """``cfg`` (the kernels on) at full width, cut to 2 layers, fp32,
+    seeded random
+    weights made on the card and copied to the CPU: one mixed step (phase
+    4's geometry) card vs CPU, its MoE routes compared first, its logits
+    within PARITY_REL_TOL; then a greedy trace of 4 requests (16 to 64
+    prompt tokens, 8 new) through the engine on both (the card's steps
+    eager, so that its routes are recorded too): identical tokens unless a
+    route parted at a near tie, which is then printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree_to
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    c = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p_gpu = T.init_params(c, seed=seed, device=dev)
+    p_cpu = tree_to(p_gpu, "cpu")
+    Bp, Sp, mpp = 4, 64, 8
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, c.vocab, (Bp, Sp)).astype(np.int32)
+    table = (1 + np.arange(Bp * mpp, dtype=np.int32)).reshape(Bp, mpp)
+    spans = np.array([64, 40, 17, 1], np.int32)
+    moe = c.moe is not None
+    r_card, r_cpu = [], []
+    with _recording_routes(r_card):
+        lg_card = _moe_step(p_gpu, c, dev, toks, spans, table)
+    with _recording_routes(r_cpu):
+        lg_cpu = _moe_step(p_cpu, c, torch.device("cpu"), toks, spans, table)
+    require(bool(torch.isfinite(lg_card).all()),
+            f"{c.name}: non-finite logits on the card")
+    routes = _route_check(r_card, r_cpu, f"{c.name} parity step") \
+        if moe else None
+    flipped = bool(routes and routes["differences"])
+    diff = (lg_card - lg_cpu).abs()
+    rel = float(diff.max() / lg_cpu.abs().max())
+    line = {"phase": "parity_step_moe", "model": c.name,
+            "layers": c.n_layers, "max_abs_err": float(diff.max()),
+            "max_rel_err": rel, "rel_tol": PARITY_REL_TOL,
+            "routes": routes, "route_flip": flipped}
+    require(flipped or rel <= PARITY_REL_TOL,
+            f"{c.name}: card vs CPU logits {rel} apart")
+    prompts = _serve_prompts(c.vocab, 4, 16, 64, seed=12)
+    outs, traces = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        eng = ContinuousBatchingEngine(
+            c, p_gpu if side == "card" else p_cpu,
+            **{**SERVE_KW, "max_len": 256}, device=d)
+        eng.step_graphs = None        # eager: the routes are recorded
+        rec = []
+        with _recording_routes(rec):
+            reqs = _drive(eng, [p.copy() for p in prompts], 0, 8,
+                          f"{c.name} {side} trace")
+        outs[side] = [list(r.output_tokens) for r in reqs]
+        traces[side] = rec
+        del eng
+    troutes = _route_check(traces["card"], traces["cpu"],
+                           f"{c.name} trace") if moe else None
+    tflip = bool(troutes and troutes["differences"])
+    same = outs["card"] == outs["cpu"]
+    line["trace"] = {"tokens_identical": same, "routes": troutes,
+                     "route_flip": tflip,
+                     "parted": [i for i, (a, b) in enumerate(
+                         zip(outs["card"], outs["cpu"])) if a != b]}
+    require(same or tflip, f"{c.name}: greedy tokens differ card vs CPU "
+            f"with no route difference: {line['trace']['parted']}")
+    if routes:   # the per-difference lists can be long: counts suffice
+        for r in (routes, troutes):
+            r["n_differences"] = len(r["differences"])
+            r["differences"] = r["differences"][:8]
+    emit(line)
+    return line
+
+
+def _phase_moe(dev, graphs_replayed, serve_counts: dict) -> None:
+    """Phase 3g: qwen2-moe-a2.7b and granite-moe-1b-a400m at full width
+    and depth (bf16, seed-0 random weights) served through the engine's
+    step graphs, qwen2 float and with int8 factors and fused projections;
+    each with a profiled window (step wall/device ms, tokens/s, launches a
+    step by family: the experts' projections counted as one
+    expert-batched launch each); gemma2-27b at full width (46 layers)
+    served through B1, B2 and the dense attention its softcap takes, with
+    a profiled window; then card vs CPU at 2 layers fp32 for all three
+    (:func:`_moe_parity`).  Records the serve's launches of the
+    expert-batched kernels in ``serve_counts``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    def on(cfg):
+        return dataclasses.replace(cfg, paged_kernel=True,
+                                   monarch=dataclasses.replace(
+                                       cfg.monarch, backend="pallas"))
+
+    qopts = dict(quantize="int8", fuse_projections=True)
+    for arch, variants in (("qwen2-moe-a2.7b", ({}, qopts)),
+                           ("granite-moe-1b-a400m", ({},))):
+        cfg = on(get_config(arch))
+        mc = cfg.moe
+        params = T.init_params(cfg, seed=0, device=dev)
+        for opts in variants:
+            eng, reqs, counts, dt, n_out, prompt_toks = _serve(
+                cfg, params, 8, 32, 256, 32, seed=0, **opts)
+            q = bool(opts)
+            name = "monarch_fused_q_experts" if q else "monarch_fused_experts"
+            line = {"phase": "serve_moe", "model": arch, "options": opts,
+                    "dtype": cfg.dtype, "layers": cfg.n_layers,
+                    "experts": [mc.n_experts, mc.n_slots, mc.top_k,
+                                mc.n_shared],
+                    "requests": len(reqs), "prompt_tokens": prompt_toks,
+                    "new_tokens": n_out, "seconds": dt,
+                    "tokens_per_s": n_out / dt,
+                    "steps": eng.stats["mixed_steps"],
+                    "kernel_dispatches": eng.stats["kernel_dispatches"],
+                    "dense_fallbacks": eng.stats["dense_fallbacks"],
+                    "launches": counts,
+                    "expert_keys": sorted(
+                        eng.params["decoder"]["layers"]["moe"]["experts"]),
+                    "graphs": graphs_replayed(eng, f"{arch} serve")}
+            emit(line)
+            other = "monarch_fused_experts" if q else \
+                "monarch_fused_q_experts"
+            require(counts[name] > 0 and counts[other] == 0
+                    and counts["paged_attention_span"] > 0
+                    and eng.stats["dense_fallbacks"] == 0,
+                    f"{arch} {opts}: the experts must run {name} only, "
+                    f"attention the span kernel: {counts}")
+            serve_counts[name] = serve_counts.get(name, 0) + counts[name]
+            del eng
+            prof = _profile_serve(cfg, params, **opts)
+            emit({"phase": "serve_profile_moe", "model": arch,
+                  "options": opts, **prof})
+            # one launch a projection over the expert axis: up, gate and
+            # down (up+gate fused: two), never one an expert; the single
+            # products: attention (q, k, v, o; fused: qkv and o, or q, kv
+            # and o under GQA) and each shared expert's projections
+            ffn = 2 if q else 3
+            attn = 4 if not q else 2 if cfg.n_heads == cfg.n_kv_heads else 3
+            per_layer = {name: ffn,
+                         "monarch_fused_q" if q else "monarch_fused":
+                         attn + ffn * mc.n_shared}
+            for wname, w in prof.items():
+                got = {k: w["launches_per_step"].get(k, 0) / cfg.n_layers
+                       for k in per_layer}
+                require(got == per_layer, f"{arch} {opts} {wname}: launches "
+                        f"a layer {got}, not {per_layer}")
+        del params
+        torch.cuda.empty_cache()
+    # gemma2-27b: sandwich norms, local/global windows, softcaps, GeGLU
+    cfg = on(get_config("gemma2-27b"))
+    params = T.init_params(cfg, seed=0, device=dev)
+    kw = dict(max_len=512)
+    eng, reqs, counts, dt, n_out, prompt_toks = _serve(
+        cfg, params, 8, 32, 256, 32, seed=0, **kw)
+    emit({"phase": "serve_gemma2", "model": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "requests": len(reqs),
+          "prompt_tokens": prompt_toks, "new_tokens": n_out, "seconds": dt,
+          "tokens_per_s": n_out / dt, "steps": eng.stats["mixed_steps"],
+          "dense_fallback_softcap": eng.stats["dense_fallback_softcap"],
+          "launches": counts, "graphs": graphs_replayed(eng, "gemma2 serve")})
+    require(counts["monarch_fused"] > 0 and counts["bdmm"] > 0
+            and counts["paged_attention_span"] == 0
+            and eng.stats["dense_fallback_softcap"]
+            == eng.stats["mixed_steps"],
+            f"gemma2-27b must run B1 and B2 and its softcapped attention "
+            f"dense: {counts}")
+    del eng
+    emit({"phase": "serve_profile_gemma2", **_profile_serve(cfg, params,
+                                                            **kw)})
+    del params
+    torch.cuda.empty_cache()
+    for arch in ("qwen2-moe-a2.7b", "granite-moe-1b-a400m", "gemma2-27b"):
+        _moe_parity(on(get_config(arch)), dev)
+        torch.cuda.empty_cache()
+
+
 def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
     """A rank of phase 5's snapshots: the tp = 1 snapshot under
     ``tp1_dir`` restored on this mesh and served to the end (its finished
@@ -2139,8 +2553,8 @@ def main() -> int:
 
     # -- 2b0. B2/B5 at their call sets (BDMM_CALL_SETS): both stages of each
     # projection as ops.monarch_mm issues them (stage 2 reads stage 1's
-    # output through its transposed view), bf16 x, fp32 factors (B2) or
-    # int8 / int4 (B5), at T = 8 and 512; each line with both stages'
+    # output through its transposed view), bf16 x (gemma2's B2 also fp32
+    # x), fp32 factors (B2) or int8 / int4 (B5), at T = 8 and 512; each line with both stages'
     # launches (kernels/bdmm.py:bdmm_geometry), two launches torch.equal,
     # and B5 torch.equal to B2 on the dequantized blocks --------------------
     from repro_torch.kernels import bdmm as BD
@@ -2172,10 +2586,11 @@ def main() -> int:
                 call = {"w_bytes": 4 * wf.numel(),
                         "kernel": lambda x, wf=wf: bdmm(x, wf),
                         "plain": lambda x, wf=wf: bdmm_plain(x, wf)}
-            wt = wf.to(torch.bfloat16).transpose(1, 2)
+            wts = {torch.bfloat16: wf.to(torch.bfloat16).transpose(1, 2),
+                   torch.float32: wf.float().transpose(1, 2)}
             out.append({**call, "blocks": tuple(wf.shape),
-                        "library": lambda x, wt=wt: torch.matmul(
-                            x.transpose(0, 1), wt).transpose(0, 1)})
+                        "library": lambda x, wts=wts: torch.matmul(
+                            x.transpose(0, 1), wts[x.dtype]).transpose(0, 1)})
         return out
 
     def run_stages(calls: list, xs: list, which: str) -> list:
@@ -2187,19 +2602,22 @@ def main() -> int:
             outs += [u, s2[which](u.transpose(1, 2))]
         return outs
 
-    def stage_geometry(T_, blocks, bits, contiguous) -> dict:
+    def stage_geometry(T_, blocks, bits, contiguous, x_bytes) -> dict:
         k, q, p = blocks
-        g = geometry_of(T_, k, q, p, 2, bits, contiguous)
+        g = geometry_of(T_, k, q, p, x_bytes, bits, contiguous)
         return {"blocks": [k, q, p], **g._asdict()}
 
-    def bdmm_call_set(name: str, T_: int, bits: int, fs: list) -> dict:
-        """One kernel line: the call set's stages at T_ tokens, bf16 x;
-        bits 32: B2 on fs, else B5 on fs quantized to ``bits``."""
+    def bdmm_call_set(name: str, T_: int, bits: int, fs: list,
+                      x_dtype=torch.bfloat16) -> dict:
+        """One kernel line: the call set's stages at T_ tokens, x in
+        ``x_dtype``; bits 32: B2 on fs, else B5 on fs quantized to
+        ``bits``."""
         calls = [stage_calls(quantize_monarch(f, bits), bits) if bits < 32
                  else stage_calls(f) for f in fs]
         xs = [torch.randn(T_, f["L"].shape[0] * f["L"].shape[2],
-                          generator=gb, device=dev).to(torch.bfloat16)
+                          generator=gb, device=dev).to(x_dtype)
               for f in fs]
+        xn, xb = dn_of(x_dtype), x_dtype.itemsize
         err, ok, again, same = 0.0, True, True, True
         n_bytes = flops = 0
         geos = {}
@@ -2209,58 +2627,65 @@ def main() -> int:
             ut = u.transpose(1, 2)
             y = s2["kernel"](ut)
             for s_, xin, out in ((s1, x3, u), (s2, ut, y)):
-                e, o = close(out, s_["plain"](xin), "bfloat16")
+                e, o = close(out, s_["plain"](xin), xn)
                 err, ok = max(err, e), ok and o
                 again = again and torch.equal(out, s_["kernel"](xin))
                 if "twin" in s_:
                     same = same and torch.equal(out, s_["twin"](xin))
                 k, q, p = s_["blocks"]
-                n_bytes += 2 * T_ * k * (p + q) + s_["w_bytes"]
+                n_bytes += xb * T_ * k * (p + q) + s_["w_bytes"]
                 flops += 2 * T_ * k * q * p
                 if geometry_of is not None:
                     geos.setdefault(f"{k}x{q}x{p}", stage_geometry(
-                        T_, s_["blocks"], bits, xin.stride(2) == 1))
+                        T_, s_["blocks"], bits, xin.stride(2) == 1, xb))
         # decode sums with fp32 FMA; prefill with TF32 tensor cores, two
-        # products a multiply-add (bf16 x has no small half)
+        # products a multiply-add (bf16 x has no small half), three for
+        # fp32 x (3xTF32)
         tc = T_ > 16
-        peak = TF32_FLOPS_PER_S / 2 if tc else FP32_FLOPS_PER_S
+        passes = 2 if x_dtype == torch.bfloat16 else 3
+        peak = TF32_FLOPS_PER_S / passes if tc else FP32_FLOPS_PER_S
         bms, by = bound_ms(n_bytes, flops, False, peak)
         kind = "bdmm" if bits == 32 else "bdmm_q"
         line = {"phase": "kernel", "kernel": kind, "call_set": name,
-                "T": T_, "x_dtype": "bfloat16",
+                "T": T_, "x_dtype": xn,
                 "weights": {32: "float32", 8: "int8", 4: "int4"}[bits],
                 "launches": 2 * len(fs), "max_abs_err": err,
-                "tol": TOL["bfloat16"], "deterministic": again,
+                "tol": TOL[xn], "deterministic": again,
                 **({"bitwise_vs_bdmm": same} if bits < 32 else {}),
                 "launch": geos or None,
                 **timings(kernel=lambda: run_stages(calls, xs, "kernel"),
                           plain=lambda: run_stages(calls, xs, "plain"),
                           library=lambda: run_stages(calls, xs, "library")),
                 "bound_ms": bms, "bound_by": by,
-                "bound_rate": "tf32 tensor cores / 2 products" if tc else
-                "fp32 fma"}
+                "bound_rate": f"tf32 tensor cores / {passes} products" if tc
+                else "fp32 fma"}
         emit(line)
         errs[kind] = max(errs[kind], err)
         require(ok and again and same,
-                f"{kind} {name} T={T_} int{bits}: err {err}, deterministic "
+                f"{kind} {name} T={T_} int{bits} x {xn}: err {err}, "
+                f"deterministic "
                 f"{again}, bitwise {same}")
         return line
 
     bdmm_lines: dict = {}
     bdmm_sets: dict = {}
-    for name, (proj, nblocks) in BDMM_CALL_SETS.items():
+    for name, (proj, nblocks, fused) in BDMM_CALL_SETS.items():
         fs = [init_monarch(gb, make_dims(din, dout, policy="paper",
                                          nblocks=nblocks), device=dev)
               for din, dout in proj]
-        require(not any(fused_fits(f["L"].shape, f["R"].shape) for f in fs),
+        # B5 on the quantized decode path's projections: QKV or w1g fused
+        fq = [fuse_linears(fs[:fused])] + fs[fused:] if fused else fs
+        require(not any(fused_fits(f["L"].shape, f["R"].shape)
+                        for f in fs + fq),
                 f"{name} must take the staged branch")
-        # B5 on the quantized decode path's layer: QKV fused
-        fq = [fuse_linears(fs[:3])] + fs[3:] if len(fs) == 6 else fs
         bdmm_sets[name] = (fs, fq)
         for T_ in (8, 512):
             for bits in (32, 8, 4):
                 bdmm_lines[name, T_, bits] = bdmm_call_set(
                     name, T_, bits, fs if bits == 32 else fq)
+            if name.startswith(("f_gemma2", "g_gemma2")):
+                # and fp32 x, as phase 3g's card-vs-CPU steps run B2
+                bdmm_call_set(name, T_, 32, fs, torch.float32)
     if "--calls" in sys.argv[1:]:
         # and the 128-block serves' profiled windows, as in phase 3
         cfg_st = dataclasses.replace(get_config("gpt2-medium"),
@@ -2804,7 +3229,7 @@ def main() -> int:
 
     # B2/B5: their call sets of phase 2b0, bf16 x; the decode layer (a)
     # at T = 8 (B5 int8, QKV fused) as before, at T = 512, and the FFN
-    # call sets (c)-(e) at both
+    # call sets (c)-(g) at both
     def bdmm_entry(name, T_, bits) -> dict:
         line = bdmm_lines[name, T_, bits]
         return {**summary_entry(line, line["bound_ms"], line["bound_by"]),
@@ -2817,7 +3242,8 @@ def main() -> int:
     summary["bdmm_q_T512"] = bdmm_entry(a_set, T_pre, 8)
     summary["bdmm_ffn"] = {
         f"{name} T={T_}": bdmm_entry(name, T_, 32)
-        for name in ("c_nemotron_w1", "d_nemotron_w2", "e_codeqwen_w2")
+        for name in ("c_nemotron_w1", "d_nemotron_w2", "e_codeqwen_w2",
+                     "f_gemma2_w1_wg", "g_gemma2_w2")
         for T_ in (T_dec, T_pre)}
     summary["paged_attention_span"] = summary_entry(
         paged_summary, paged_summary["bound_ms"], paged_summary["bound_by"])
@@ -2852,13 +3278,171 @@ def main() -> int:
     summary["paged_attention_span_q"] = summary_entry(
         paged_q_summary, paged_q_summary["bound_ms"],
         paged_q_summary["bound_by"])
+
+    # -- 2m. B1/B4 over a mixture-of-experts layer's stacked experts, one
+    # launch a projection over the expert axis (monarch_fused_experts /
+    # monarch_fused_q_experts): qwen2-moe-a2.7b's and granite-moe-1b-a400m's
+    # expert call sets (B1: up (= gate) and down; B4: up+gate fused and
+    # down, int8), at decode (8 tokens: 4 capacity rows an expert) and
+    # prefill (8 x 64 tokens: 42 / 160 rows), bf16 and fp32 x; each launch
+    # torch.equal to a loop of single-expert launches, B4 bitwise B1 on
+    # the dequantized factors; the library call one torch.bmm over the
+    # stack's dense matrices -------------------------------------------------
+    from repro_torch.kernels.monarch import (monarch_fused_experts,
+                                             monarch_fused_experts_plain,
+                                             monarch_fused_q_experts,
+                                             monarch_fused_q_experts_plain)
+
+    def expert_factors(E, din, dout, policy):
+        dims = make_dims(din, dout, policy=policy)
+        require(fused_fits(dims.l_shape, dims.r_shape),
+                f"expert factors {din}x{dout} must take the fused branch")
+        return {"L": randn(E, *dims.l_shape) * math.sqrt(1.0 / dims.p),
+                "R": randn(E, *dims.r_shape) * math.sqrt(1.0 / dims.k)}
+
+    def expert_timings(kern, plain, library) -> dict:
+        """``timings`` of the kernel and the library call; the plain
+        version (E plain products, 5-20 ms a call) in 3 loops of 2."""
+        t = timings(kernel=kern, library=library)
+        (t["plain_ms"], t["plain_spread"],
+         t["plain_card_ms"]) = time_ms(plain, iters=2, repeats=3)
+        return t
+
+    def expert_line(arch, proj, f, rows, xdt, bits):
+        """One expert-batched launch against its plain version, a loop of
+        single-expert launches, the library's bmm and (B4) B1 on the
+        dequantized factors; its blocks, bound and times."""
+        E, k, q_, p = f["L"].shape
+        s = f["R"].shape[2]
+        din, dout = k * p, q_ * s
+        dn = dn_of(xdt)
+        x = randn(E, rows, din, dtype=xdt)
+        if bits:
+            qc = quantize_monarch(f, bits)
+            deq = dequantize_monarch(qc, k, p)
+            qa = (qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
+            kern = lambda: monarch_fused_q_experts(x, *qa)  # noqa: E731
+            plain = lambda: monarch_fused_q_experts_plain(x, *qa)  # noqa
+            one = lambda e: monarch_fused_q(x[e], *(a[e] for a in qa))  # noqa
+            W = monarch_to_dense(deq["L"], deq["R"]).to(xdt)
+            w_bytes = qc["Lq"].numel() + qc["Rq"].numel() + 4 * (
+                qc["Ls"].numel() + qc["Rs"].numel())
+            kind = "monarch_fused_q_experts"
+        else:
+            kern = lambda: monarch_fused_experts(x, f["L"], f["R"])  # noqa
+            plain = lambda: monarch_fused_experts_plain(  # noqa: E731
+                x, f["L"], f["R"])
+            one = lambda e: monarch_fused(x[e], f["L"][e], f["R"][e])  # noqa
+            W = monarch_to_dense(f["L"], f["R"]).to(xdt)
+            w_bytes = 4 * (f["L"].numel() + f["R"].numel())
+            kind = "monarch_fused_experts"
+        y = kern()
+        err, ok = close(y, plain(), dn)
+        loop = torch.equal(y, torch.stack([one(e) for e in range(E)]))
+        twin = torch.equal(y, monarch_fused_experts(
+            x, deq["L"], deq["R"])) if bits else True
+        torch.cuda.synchronize()
+        errs[kind] = max(errs[kind], err)
+        params = (f["L"].numel() + f["R"].numel()) // E
+        bms, by = bound_ms(E * rows * (din + dout) * x.element_size()
+                           + w_bytes, 2 * E * rows * params, all_bf16=False)
+        g = fused_geometry((k, q_, p), (q_, s, k), rows, x.element_size(),
+                           bits or 32)
+        line = {"phase": "kernel", "kernel": kind, "model": arch,
+                "projection": proj, "experts": E, "rows_per_expert": rows,
+                "factors": [[k, q_, p], [q_, s, k]], "x_dtype": dn,
+                **({"bits": bits} if bits else {}),
+                "max_abs_err": err, "tol": TOL[dn],
+                "equal_to_single_launches": loop,
+                **({"bitwise_vs_monarch_fused_experts": twin}
+                   if bits else {}),
+                "launch": {"blocks": g.grid * E, "blocks_per_expert": g.grid,
+                           "tile_t": g.tile_t, "q_group": g.q_group,
+                           "slab": g.slab, "chunk": g.chunk,
+                           "smem_bytes": g.smem_bytes},
+                **expert_timings(kern, plain, lambda: torch.bmm(x, W)),
+                "bound_ms": bms, "bound_by": by}
+        emit(line)
+        require(ok and loop and twin, f"{kind} {arch} {proj} rows={rows} "
+                f"{dn}: err {err}, equal to single launches {loop}, "
+                f"bitwise B1 {twin}")
+        return line
+
+    expert_sets = {}
+    for arch in MOE_ARCHS:
+        mcfg = get_config(arch)
+        mc = mcfg.moe
+        d, de, E = mcfg.d_model, mc.d_expert, mc.n_slots
+        pol = mcfg.monarch.policy
+        w1, w2 = (expert_factors(E, d, de, pol),
+                  expert_factors(E, de, d, pol))
+        w1g = fuse_linears([w1, expert_factors(E, d, de, pol)])
+        expert_sets[arch] = (w1, w2, w1g)
+        for rows in (_moe_rows(mc, 8), _moe_rows(mc, 8 * 64)):
+            for xdt in (bf16, f32):
+                for proj, f in (("w1", w1), ("w2", w2)):
+                    expert_line(arch, proj, f, rows, xdt, 0)
+                for proj, f in (("w1g", w1g), ("w2", w2)):
+                    expert_line(arch, proj, f, rows, xdt, 8)
+    # the summary's yardstick: one qwen2-moe-a2.7b decode layer's expert
+    # projections, bf16 x, 4 rows an expert: B1 up, gate and down; B4
+    # (int8, up+gate fused) up+gate and down
+    w1, w2, w1g = expert_sets["qwen2-moe-a2.7b"]
+    rows = _moe_rows(get_config("qwen2-moe-a2.7b").moe, T_dec)
+    E = w1["L"].shape[0]
+
+    def stack_bound(fs, weight_bytes, T_):
+        n_bytes = flops = 0
+        for f in fs:
+            _, k, q_, p = f["L"].shape
+            s = f["R"].shape[2]
+            n = (f["L"].numel() + f["R"].numel()) // E
+            n_bytes += E * (T_ * (k * p + q_ * s) * 2 + n * weight_bytes
+                            + (4 * (k + q_) if weight_bytes < 4 else 0))
+            flops += 2 * E * T_ * n
+        return bound_ms(n_bytes, flops, all_bf16=False)
+
+    for key, fs, bits in (("monarch_fused_experts", [w1, w1, w2], 0),
+                          ("monarch_fused_q_experts", [w1g, w2], 8)):
+        xs_e = [randn(E, rows, f["L"].shape[1] * f["L"].shape[3],
+                      dtype=bf16) for f in fs]
+        if bits:
+            qs = [quantize_monarch(f, bits) for f in fs]
+            deqs = [dequantize_monarch(c, f["L"].shape[1], f["L"].shape[3])
+                    for c, f in zip(qs, fs)]
+            args = [(c["Lq"], c["Ls"], c["Rq"], c["Rs"]) for c in qs]
+            kern = lambda: [monarch_fused_q_experts(x, *a)  # noqa: E731
+                            for x, a in zip(xs_e, args)]
+            plain = lambda: [monarch_fused_q_experts_plain(x, *a)  # noqa
+                             for x, a in zip(xs_e, args)]
+        else:
+            deqs = fs
+            kern = lambda: [monarch_fused_experts(x, f["L"], f["R"])  # noqa
+                            for x, f in zip(xs_e, fs)]
+            plain = lambda: [monarch_fused_experts_plain(  # noqa: E731
+                x, f["L"], f["R"]) for x, f in zip(xs_e, fs)]
+        Ws = [monarch_to_dense(dq["L"], dq["R"]).to(bf16) for dq in deqs]
+        t = expert_timings(kern, plain, lambda: [
+            torch.bmm(x, W) for x, W in zip(xs_e, Ws)])
+        summary[key] = {
+            **summary_entry(t, *stack_bound(fs, 1 if bits else 4, rows)),
+            "device_ms": device_ms(kern), "T": rows, "experts": E,
+            "grid": [fused_geometry(f["L"].shape[1:], f["R"].shape[1:],
+                                    rows, 2, bits or 32).grid * E
+                     for f in fs]}
+        del Ws
+    del expert_sets, w1, w2, w1g
+    torch.cuda.empty_cache()
     emit({"phase": "kernel_summary",
           "what": "one bf16 decode layer at T=8 (B1/B4: its projections, "
                   "B4 int8 with fused QKV; B2/B5: the same at 128 blocks; "
                   "B3/B6: one decode call); B1/B2/B4/B5 also one prefill "
                   "layer at T=512 (*_T512); bdmm_ffn: B2 at the FFN call "
-                  "sets; device_ms: torch.profiler's kernel time, grid: "
-                  "blocks per launch", "summary": summary})
+                  "sets; *_experts: one qwen2-moe-a2.7b decode layer's "
+                  "expert projections over its 64 slots, 4 rows each (B1 "
+                  "up, gate, down; B4 int8 up+gate, down); device_ms: "
+                  "torch.profiler's kernel time, grid: blocks per launch",
+          "summary": summary})
 
     # -- 2h. what spreading B1 over the SMs would buy at decode: its device
     # time at T = 8 with fused_geometry's grid (one block a q-block) against
@@ -3752,9 +4336,10 @@ def main() -> int:
                 f"{what}: D2S card vs CPU differ: {worst_m}")
         return conv
 
-    # D2S of gpt2-medium:dense at full width (fp32), card against CPU
+    # D2S of gpt2-medium:dense at full width (fp32) and D2S_LAYERS of its
+    # 24 layers, card against CPU
     cfg_d = dataclasses.replace(get_config("gpt2-medium:dense"),
-                                dtype="float32")
+                                dtype="float32", n_layers=D2S_LAYERS)
     conv = d2s_both(T.init_params(cfg_d, seed=0, device=dev),
                     "gpt2-medium:dense")
     torch.cuda.empty_cache()
@@ -3929,6 +4514,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     _example_runs(dev)
     phase_done("3f ring cache and ServeEngine")
+
+    # -- 3g. mixture of experts and sandwich norms: qwen2-moe-a2.7b and
+    # granite-moe-1b-a400m at full width and depth (the experts' B1/B4 one
+    # launch a projection), gemma2-27b at full width and depth, each card
+    # vs CPU at 2 layers --------------------------------------------------
+    _phase_moe(dev, graphs_replayed, serve_counts)
+    torch.cuda.empty_cache()
+    phase_done("3g mixture of experts and sandwich norms")
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -4852,7 +5445,10 @@ def main() -> int:
             "library_card_ms": s["library_card_ms"],
             **({"replaces_kind": "jnp compiled by XLA in the jitted step, "
                                  "not Pallas"}
-               if name in JNP_KERNELS else {})})
+               if name in JNP_KERNELS else {}),
+            **({"replaces_kind": "the Pallas kernel under jax.vmap over "
+                                 f"the experts ({VMAPPED[name]})"}
+               if name in VMAPPED else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     smi = subprocess.run(

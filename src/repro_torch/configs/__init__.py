@@ -4,8 +4,11 @@ Variants are selected with a suffix, as in ``repro.configs``:
 ``name`` -> Monarch-sparse (paper policy), ``name:dense`` -> dense
 baseline, ``name:mxu`` -> Monarch with 128-aligned blocks.  Ported are
 the architectures whose layers the port has (attention stacks: LayerNorm
-or RMSNorm, GELU, SwiGLU or squared-ReLU FFNs, MHA or GQA, RoPE, tied or
-untied embeddings); the others come with the model families they need.
+or RMSNorm, GELU, GeGLU, SwiGLU or squared-ReLU FFNs, MHA or GQA, RoPE,
+local/global windows, logit softcaps, sandwich norms, mixture-of-experts
+FFNs, tied or untied embeddings); the others (encoder-decoder, Mamba2 and
+hybrid stacks, modality frontends) come with the model families they
+need.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from repro_torch.core.linear import MonarchSpec
 from repro_torch.models.config import ModelConfig
 
 PORTED_ARCHS = ["gpt2-medium", "bert-large-lm", "codeqwen1.5-7b",
-                "minicpm-2b", "nemotron-4-15b"]
+                "minicpm-2b", "nemotron-4-15b", "gemma2-27b",
+                "granite-moe-1b-a400m", "qwen2-moe-a2.7b"]
 
 
 def _module_name(arch: str) -> str:

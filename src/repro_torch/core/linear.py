@@ -17,6 +17,11 @@ per-block ``Ls``/``Rs``) takes ``kernels.ops.monarch_mm_q`` on the kernel
 backend, and on the einsum backend is dequantized to fp32 factors first, so
 it then follows the einsum row above.
 
+A mixture-of-experts layer's stacked experts (every leaf with a leading
+expert axis, x (E, rows, d)) go through the same function: dense weights
+as one batched matmul, Monarch factors as one stacked product (the
+einsum backend) or one expert-batched kernel launch (``kernels.ops``).
+
 Tensor parallelism follows the Megatron pairs of ``sharding.params``: a
 column-parallel linear is a smaller linear of the same kind and needs
 nothing here; a row-parallel one passes ``reduce=`` its mesh and ends in

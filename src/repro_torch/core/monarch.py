@@ -163,17 +163,28 @@ def monarch_multiply(x: torch.Tensor, L: torch.Tensor,
     """y = x @ M with M the Monarch matrix defined by factors (L, R).
 
     Computes in the promotion of the operand dtypes, as the reference's
-    einsums do: bf16 x with fp32 factors returns fp32."""
-    k, q, p = L.shape
-    q2, s, k2 = R.shape
-    if (q2, k2) != (q, k):
+    einsums do: bf16 x with fp32 factors returns fp32.
+
+    Stacked experts (a mixture-of-experts layer, the reference's product
+    under ``jax.vmap``): L (E, k, q, p), R (E, q, s, k) and x (E, ...,
+    k*p), expert e's rows through expert e's factors."""
+    *lead, k, q, p = L.shape
+    *lead_r, q2, s, k2 = R.shape
+    if (q2, k2) != (q, k) or lead_r != lead or len(lead) > 1:
         raise ValueError(f"incompatible factors L{tuple(L.shape)} "
                          f"R{tuple(R.shape)}")
     *batch, din = x.shape
-    if din != k * p:
-        raise ValueError(f"x last dim {din} != k*p = {k * p}")
+    if din != k * p or batch[:len(lead)] != lead:
+        raise ValueError(f"x{tuple(x.shape)} does not fit factors "
+                         f"L{tuple(L.shape)}")
     dt = _promote(x, L, R)
-    u = blockdiag_multiply(x.reshape(*batch, k, p).to(dt), L.to(dt))
+    xr = x.reshape(*batch, k, p).to(dt)
+    if lead:
+        u = torch.einsum("ekqp,e...kp->e...kq", L.to(dt), xr)
+        y = torch.einsum("eqsk,e...qk->e...qs", R.to(dt),
+                         u.transpose(-1, -2))
+        return y.reshape(*batch, q * s)
+    u = blockdiag_multiply(xr, L.to(dt))
     ut = u.transpose(-1, -2)  # (..., q, k): the folded permutation
     y = torch.einsum("qsk,...qk->...qs", R.to(dt), ut)
     return y.reshape(*batch, q * s)

@@ -42,6 +42,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # launches its kernel, and nowhere else (the CPU path never counts)
 LAUNCHES = {"monarch_fused": 0, "bdmm": 0, "paged_attention_span": 0,
             "monarch_fused_q": 0, "bdmm_q": 0, "paged_attention_span_q": 0,
+            "monarch_fused_experts": 0, "monarch_fused_q_experts": 0,
             "paged_attention_span_sharded": 0,
             "paged_attention_span_sharded_q": 0, "quantize_kv_write": 0,
             "sample_tokens": 0}

@@ -52,6 +52,10 @@ struct FloatBlocks {
     return reinterpret_cast<const char*>(w + ((size_t)blk * rows + r) * cols);
   }
   __device__ __forceinline__ float scale_of(int) const { return 1.f; }
+  // expert e of a stack of factors of ``nblocks`` blocks each
+  __host__ __device__ FloatBlocks expert(int e, int nblocks) const {
+    return FloatBlocks{w + (size_t)e * nblocks * rows * cols, rows, cols};
+  }
   // element c of a stored row; a float factor has no scale
   __device__ static __forceinline__ float at(const char* row, int c, float) {
     return to_f(reinterpret_cast<const WT*>(row)[c]);
@@ -80,6 +84,12 @@ struct QuantBlocks {
   }
   __device__ __forceinline__ float scale_of(int blk) const {
     return scale[blk];
+  }
+  // expert e of a stack of factors of ``nblocks`` blocks each (values and
+  // one scale a block)
+  __host__ __device__ QuantBlocks expert(int e, int nblocks) const {
+    return QuantBlocks{w + (size_t)e * nblocks * rows * row_bytes(),
+                       scale + (size_t)e * nblocks, rows, cols};
   }
   __device__ static __forceinline__ float at(const char* row, int c,
                                              float sc) {

@@ -8,6 +8,15 @@
 // Quantized: Lq (k, q, p[/2]) int8, Ls (k,) fp32, Rq (q, s, k[/2]) int8, Rs
 // (q,) fp32; the int4 axis is the contraction axis of each factor.
 //
+// Stacked experts (the reference's ``monarch_fused`` / ``monarch_fused_q``
+// under ``jax.vmap`` over a mixture-of-experts layer's expert axis): E
+// triples (x, L, R) stored back to back, x (E, T, k*p), L (E, k, q, p), R
+// (E, q, s, k) (scales (E, k) and (E, q)) -> y (E, T, q*s), in ONE launch
+// whose grid has a second axis of E: blockIdx.y is the expert, and each
+// expert's blocks are exactly a single launch's (the same tile plan, the
+// same summation order), so the stacked launch is bitwise E launches of one
+// expert each.  A single product is the stack of one (E = 1).
+//
 // The split.  Output block i, y[:, i*s:(i+1)*s], needs only L[:, i, :] (k x p),
 // R[i] (s x k) and the token rows of x:
 //
@@ -118,6 +127,15 @@ __global__ void __launch_bounds__(NTH)
                          XT* __restrict__ y, int T, int k, int q, int p,
                          int s, int bT, int qg, int slab, int jc) {
   extern __shared__ __align__(16) char smem[];
+  // expert blockIdx.y of a stacked launch: its own x rows, factors and y
+  // rows; everything below is the single-expert kernel
+  {
+    const int e = blockIdx.y;
+    x += (size_t)e * T * k * p;
+    y += (size_t)e * T * q * s;
+    Lw = Lw.expert(e, k);
+    Rw = Rw.expert(e, q);
+  }
   constexpr int xb = sizeof(XT);
   const int lrow = Lw.row_bytes(), rrow = Rw.row_bytes();
   const Layout lay = layout(k, p, bT, qg, slab, jc, xb, lrow, rrow);
@@ -298,11 +316,17 @@ __global__ void __launch_bounds__(NTH)
 // One launch's arguments, as kernels/monarch.py:_launch_args packs them
 // into one int array (a ctypes call costs host time per argument, and a
 // decode launch is short): the shape, the geometry from
-// kernels/monarch.py:fused_geometry, x's dtype code, and the factors'
-// dtype code (float) or bits (quantized).
+// kernels/monarch.py:fused_geometry (``grid``: one expert's blocks), x's
+// dtype code, the factors' dtype code (float) or bits (quantized), and the
+// experts of a stacked launch (1 for a single product).
 struct Args {
-  int T, k, q, p, s, bT, qg, slab, jc, grid, threads, smem, x_dtype, w;
+  int T, k, q, p, s, bT, qg, slab, jc, grid, threads, smem, x_dtype, w, E;
 };
+
+inline Args args_of(const int* a) {
+  return Args{a[0], a[1], a[2],  a[3],  a[4],  a[5],  a[6], a[7],
+              a[8], a[9], a[10], a[11], a[12], a[13], a[14]};
+}
 
 // The launch refuses a geometry that does not tile the output or whose
 // shared memory is not this layout's.
@@ -310,7 +334,8 @@ template <typename XT, typename W>
 int launch(const void* x, W Lw, W Rw, void* y, const Args& a,
            cudaStream_t stream) {
   if (a.T < 1 || a.bT < 1 || a.qg < 1 || a.qg > QG || a.q % a.qg != 0 ||
-      a.slab < 1 || a.jc < 1 || a.k % a.jc != 0 || a.threads != NTH)
+      a.slab < 1 || a.jc < 1 || a.k % a.jc != 0 || a.threads != NTH ||
+      a.E < 1 || a.E > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay = layout(a.k, a.p, a.bT, a.qg, a.slab, a.jc, sizeof(XT),
                             Lw.row_bytes(), Rw.row_bytes());
@@ -321,7 +346,7 @@ int launch(const void* x, W Lw, W Rw, void* y, const Args& a,
   auto kern = monarch_fused_kernel<XT, W>;
   cudaError_t err = prepare_smem(kern, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<a.grid, NTH, lay.total, stream>>>(
+  kern<<<dim3(a.grid, a.E), NTH, lay.total, stream>>>(
       static_cast<const XT*>(x), Lw, Rw, static_cast<XT*>(y), a.T, a.k, a.q,
       a.p, a.s, a.bT, a.qg, a.slab, a.jc);
   return static_cast<int>(cudaGetLastError());
@@ -343,9 +368,7 @@ extern "C" int monarch_fused_launch(const void* x, const void* L,
                                     const void* R, void* y, const int* args,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{args[0], args[1], args[2],  args[3],  args[4],
-               args[5], args[6], args[7],  args[8],  args[9],
-               args[10], args[11], args[12], args[13]};
+  const Args a = args_of(args);
   if (a.w == DT_F32)
     return launch_x(
         x, FloatBlocks<float>{static_cast<const float*>(L), a.q, a.p},
@@ -368,9 +391,7 @@ extern "C" int monarch_fused_q_launch(const void* x, const void* Lq,
                                       const void* Rs, void* y,
                                       const int* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{args[0], args[1], args[2],  args[3],  args[4],
-               args[5], args[6], args[7],  args[8],  args[9],
-               args[10], args[11], args[12], args[13]};
+  const Args a = args_of(args);
   const int8_t* l8 = static_cast<const int8_t*>(Lq);
   const int8_t* r8 = static_cast<const int8_t*>(Rq);
   const float* ls = static_cast<const float*>(Ls);

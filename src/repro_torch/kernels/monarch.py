@@ -44,6 +44,19 @@ products would break (see the source note and PERF.md).
 ``monarch_fused`` (``monarch_fused_q``) launches the kernel for a CUDA
 tensor and uses the plain version ``monarch_fused_plain``
 (``monarch_fused_q_plain``) only for a CPU tensor.
+
+A mixture-of-experts layer runs its stacked experts' projections as the
+reference runs them under ``jax.vmap``, which gives its Pallas kernels one
+more grid axis: ``monarch_fused_experts`` (``monarch_fused_q_experts``)
+takes E stacked (x, L, R) triples, x (E, T, k*p), L (E, k, q, p), R (E,
+q, s, k), and launches the same kernel ONCE with a second grid axis of E.
+Each expert keeps a single launch's blocks, tile plan and summation order,
+so the stacked launch is ``torch.equal`` to E single launches and the
+quantized one stays bitwise the float one.  It counts apart from the
+single-product wrappers (``LAUNCHES["monarch_fused_experts"]``,
+``["monarch_fused_q_experts"]``), one a launch.  At decode a single
+expert's launch has q blocks (32-64 at the MoE configs' expert shapes);
+stacked over 32-64 experts it has 1024-4096, enough to fill the card.
 """
 
 from __future__ import annotations
@@ -214,13 +227,14 @@ def fused_geometry(L_shape, R_shape, T: int, x_bytes: int = 4,
 
 @functools.lru_cache(maxsize=4096)
 def _launch_args(what: str, k, q, p, s, T, x_dtype, w,
-                 slab: Optional[int] = None) -> ctypes.Array:
+                 slab: Optional[int] = None, E: int = 1) -> ctypes.Array:
     """The C entry point's ``args`` for one launch (csrc/monarch.cu: Args):
     shape, geometry (``slab`` as in :func:`fused_geometry`), x's dtype
-    code and ``w``, the factors' dtype (float kernel) or bits (quantized).
-    Cached, and one array instead of 14 ints: at decode the wrapper's host
-    time is as long as the launch.  Raises where no geometry fits or a
-    dtype is not taken."""
+    code and ``w``, the factors' dtype (float kernel) or bits (quantized),
+    and ``E``, the experts of a stacked launch (each expert's blocks are
+    the geometry's ``grid``).  Cached, and one array instead of 15 ints:
+    at decode the wrapper's host time is as long as the launch.  Raises
+    where no geometry fits or a dtype is not taken."""
     x_code = _build.dtype_code_of(x_dtype, f"{what} x")
     w_bits = w
     if isinstance(w, torch.dtype):
@@ -231,9 +245,9 @@ def _launch_args(what: str, k, q, p, s, T, x_dtype, w,
     if g is None:
         raise ValueError(f"{what}: factors ({k}, {q}, {p}) / ({q}, {s}, "
                          f"{k}) have no launch geometry at T = {T}")
-    return (ctypes.c_int * 14)(T, k, q, p, s, g.tile_t, g.q_group, g.slab,
+    return (ctypes.c_int * 15)(T, k, q, p, s, g.tile_t, g.q_group, g.slab,
                                g.chunk, g.grid, g.threads, g.smem_bytes,
-                               x_code, w)
+                               x_code, w, E)
 
 
 def monarch_fused_plain(x: torch.Tensor, L: torch.Tensor,
@@ -249,60 +263,112 @@ def monarch_fused_plain(x: torch.Tensor, L: torch.Tensor,
     return y.reshape(T, q * s).to(x.dtype)
 
 
+def monarch_fused_experts_plain(x: torch.Tensor, L: torch.Tensor,
+                                R: torch.Tensor) -> torch.Tensor:
+    """The stacked launch's arithmetic: :func:`monarch_fused_plain` of each
+    expert, stacked (x (E, T, k*p) -> (E, T, q*s))."""
+    return torch.stack([monarch_fused_plain(x[e], L[e], R[e])
+                        for e in range(L.shape[0])])
+
+
 _ARGTYPES = [ctypes.c_void_p] * 6
+
+
+def _check_float(what: str, x, L, R, lead: int) -> tuple:
+    """(k, q, p, s) of a float factor pair after the shape checks shared
+    by the single and the stacked wrapper (``lead`` leading axes, each of
+    one size in x, L and R)."""
+    k, q, p = L.shape[lead:]
+    q2, s, k2 = R.shape[lead:]
+    if (L.dim() != 3 + lead or R.dim() != 3 + lead or x.dim() != 2 + lead
+            or (q2, k2) != (q, k) or k * p != x.shape[-1]
+            or not L.shape[:lead] == R.shape[:lead] == x.shape[:lead]):
+        raise ValueError(f"{what}: bad shapes x{tuple(x.shape)} "
+                         f"L{tuple(L.shape)} R{tuple(R.shape)}")
+    return k, q, p, s
+
+
+def _check_card(what: str, *ts) -> None:
+    """Every tensor on x's card, contiguous; raises otherwise."""
+    dev = ts[0].get_device()
+    if any(t.get_device() != dev for t in ts[1:]):
+        raise ValueError(f"{what}: every tensor must be on one CUDA device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def _launch_float(what: str, x, L, R, y, k, q, p, s, E: int) -> None:
+    if L.dtype != R.dtype:
+        raise TypeError(f"{what}: L and R must share a dtype")
+    if not fused_fits((k, q, p), (q, s, k)):
+        raise ValueError(f"{what}: factors ({k}, {q}, {p}) / ({q}, {s}, "
+                         f"{k}) take the staged branch")
+    args = _launch_args(what, k, q, p, s, x.shape[-2], x.dtype, L.dtype,
+                        E=E)
+    lib = _build.library("monarch", "monarch_fused_launch", _ARGTYPES)
+    err = lib.monarch_fused_launch(x.data_ptr(), L.data_ptr(), R.data_ptr(),
+                                   y.data_ptr(), args, _build.stream_of(x))
+    _build.check(err, f"{what} launch")
+    _build.LAUNCHES[what] += 1
 
 
 def monarch_fused(x: torch.Tensor, L: torch.Tensor,
                   R: torch.Tensor) -> torch.Tensor:
     """x: (T, din) -> (T, dout) with din = k*p, dout = q*s."""
-    T, din = x.shape
-    k, q, p = L.shape
-    q2, s, k2 = R.shape
-    if (q2, k2) != (q, k) or k * p != din:
-        raise ValueError(f"bad shapes x{tuple(x.shape)} L{tuple(L.shape)} "
-                         f"R{tuple(R.shape)}")
+    k, q, p, s = _check_float("monarch_fused", x, L, R, 0)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return monarch_fused_plain(x, L, R)
         raise ValueError("monarch_fused: x, L and R must share one CUDA "
                          "device")
-    dev = x.get_device()
-    if L.get_device() != dev or R.get_device() != dev:
-        raise ValueError("monarch_fused: x, L and R must share one CUDA "
-                         "device")
-    if not (x.is_contiguous() and L.is_contiguous() and R.is_contiguous()):
-        raise ValueError("monarch_fused: tensors must be contiguous")
-    if L.dtype != R.dtype:
-        raise TypeError("monarch_fused: L and R must share a dtype")
-    if not fused_fits((k, q, p), (q, s, k)):
-        raise ValueError(f"monarch_fused: factors L{tuple(L.shape)} "
-                         f"R{tuple(R.shape)} take the staged branch")
-    y = torch.empty((T, q * s), dtype=x.dtype, device=x.device)
-    if T == 0:
-        return y
-    args = _launch_args("monarch_fused", k, q, p, s, T, x.dtype, L.dtype)
-    lib = _build.library("monarch", "monarch_fused_launch", _ARGTYPES)
-    err = lib.monarch_fused_launch(x.data_ptr(), L.data_ptr(), R.data_ptr(),
-                                   y.data_ptr(), args, _build.stream_of(x))
-    _build.check(err, "monarch_fused launch")
-    _build.LAUNCHES["monarch_fused"] += 1
+    _check_card("monarch_fused", x, L, R)
+    y = torch.empty((x.shape[0], q * s), dtype=x.dtype, device=x.device)
+    if x.shape[0]:
+        _launch_float("monarch_fused", x, L, R, y, k, q, p, s, 1)
+    return y
+
+
+def monarch_fused_experts(x: torch.Tensor, L: torch.Tensor,
+                          R: torch.Tensor) -> torch.Tensor:
+    """E stacked products in one launch: x (E, T, k*p), L (E, k, q, p),
+    R (E, q, s, k) -> (E, T, q*s), ``torch.equal`` to
+    :func:`monarch_fused` of each expert."""
+    k, q, p, s = _check_float("monarch_fused_experts", x, L, R, 1)
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return monarch_fused_experts_plain(x, L, R)
+        raise ValueError("monarch_fused_experts: x, L and R must share one "
+                         "CUDA device")
+    _check_card("monarch_fused_experts", x, L, R)
+    E, T, _ = x.shape
+    y = torch.empty((E, T, q * s), dtype=x.dtype, device=x.device)
+    if E and T:
+        _launch_float("monarch_fused_experts", x, L, R, y, k, q, p, s, E)
     return y
 
 
 def quant_dims(x_shape, Lq, Ls, Rq, Rs) -> tuple[int, int, int, int, int]:
     """(k, q, p, s, bits) of a quantized factor pair for activations of
     ``x_shape``; bits 4 when both factors are packed along their
-    contraction axis.  Raises on a container the kernels do not take."""
-    return _quant_dims(x_shape[-1], Lq.shape, Ls.shape, Rq.shape, Rs.shape)
+    contraction axis.  The dims are read from each tensor's trailing three
+    axes, so a stacked pair (leading expert or layer axes, equal in all
+    four) reads as one of its members.  Raises on a container the kernels
+    do not take."""
+    return _quant_dims(x_shape[-1], tuple(Lq.shape), tuple(Ls.shape),
+                       tuple(Rq.shape), tuple(Rs.shape))
 
 
 @functools.lru_cache(maxsize=None)
 def _quant_dims(din, Lq_shape, Ls_shape, Rq_shape, Rs_shape):
-    k, q = Ls_shape[0], Rs_shape[0]
-    p, s = din // k, Rq_shape[1]
-    ok = (k * p == din and len(Lq_shape) == 3 and len(Rq_shape) == 3
-          and tuple(Lq_shape[:2]) == (k, q) and Rq_shape[0] == q
-          and tuple(Ls_shape) == (k, 1, 1) and tuple(Rs_shape) == (q, 1, 1))
+    k, q = Ls_shape[-3], Rs_shape[-3]
+    p, s = din // k, Rq_shape[-2]
+    lead = Lq_shape[:-3]
+    ok = (k * p == din and len(Lq_shape) >= 3
+          and Ls_shape[:-3] == Rq_shape[:-3] == Rs_shape[:-3] == lead
+          and tuple(Lq_shape[-3:-1]) == (k, q) and Rq_shape[-3] == q
+          and tuple(Ls_shape[-3:]) == (k, 1, 1)
+          and tuple(Rs_shape[-3:]) == (q, 1, 1))
+    Lq_shape, Rq_shape = Lq_shape[-3:], Rq_shape[-3:]
     if ok and (Lq_shape[2], Rq_shape[2]) == (p, k):
         return k, q, p, s, 8
     if ok and (2 * Lq_shape[2], 2 * Rq_shape[2]) == (p, k):
@@ -322,47 +388,87 @@ def monarch_fused_q_plain(x: torch.Tensor, Lq: torch.Tensor,
                                dequantize_factor(Rq, Rs, unpacked_dim=k))
 
 
+def monarch_fused_q_experts_plain(x: torch.Tensor, Lq: torch.Tensor,
+                                  Ls: torch.Tensor, Rq: torch.Tensor,
+                                  Rs: torch.Tensor) -> torch.Tensor:
+    """The stacked quantized launch's arithmetic:
+    :func:`monarch_fused_q_plain` of each expert, stacked."""
+    return torch.stack([monarch_fused_q_plain(x[e], Lq[e], Ls[e], Rq[e],
+                                              Rs[e])
+                        for e in range(Lq.shape[0])])
+
+
 _Q_ARGTYPES = [ctypes.c_void_p] * 8
+
+
+def _check_quant(what: str, x, Lq, Ls, Rq, Rs, lead: int) -> tuple:
+    dims = quant_dims(x.shape, Lq, Ls, Rq, Rs)
+    if (Lq.dim() != 3 + lead or x.dim() != 2 + lead
+            or x.shape[:lead] != Lq.shape[:lead]):
+        raise ValueError(f"{what}: bad shapes x{tuple(x.shape)} "
+                         f"Lq{tuple(Lq.shape)}")
+    return dims
+
+
+def _launch_quant(what: str, x, Lq, Ls, Rq, Rs, y, dims, E: int) -> None:
+    k, q, p, s, bits = dims
+    _check_card(what, x, Lq, Ls, Rq, Rs)
+    if not (Lq.dtype is torch.int8 and Rq.dtype is torch.int8
+            and Ls.dtype is torch.float32 and Rs.dtype is torch.float32):
+        raise TypeError(f"{what}: factors int8, scales float32")
+    if not fused_fits((k, q, p), (q, s, k)):
+        raise ValueError(f"{what}: factors ({k}, {q}, {p}) / ({q}, {s}, "
+                         f"{k}) take the staged branch")
+    args = _launch_args(what, k, q, p, s, x.shape[-2], x.dtype, bits, E=E)
+    lib = _build.library("monarch", "monarch_fused_q_launch", _Q_ARGTYPES)
+    err = lib.monarch_fused_q_launch(
+        x.data_ptr(), Lq.data_ptr(), Ls.data_ptr(), Rq.data_ptr(),
+        Rs.data_ptr(), y.data_ptr(), args, _build.stream_of(x))
+    _build.check(err, f"{what} launch")
+    _build.LAUNCHES[what] += 1
 
 
 def monarch_fused_q(x: torch.Tensor, Lq: torch.Tensor, Ls: torch.Tensor,
                     Rq: torch.Tensor, Rs: torch.Tensor) -> torch.Tensor:
     """x: (T, k*p) -> (T, q*s) in x's dtype; Lq: (k, q, p[/2]) int8, Ls:
     (k, 1, 1) fp32, Rq: (q, s, k[/2]) int8, Rs: (q, 1, 1) fp32."""
-    T, _ = x.shape
-    k, q, p, s, bits = quant_dims(x.shape, Lq, Ls, Rq, Rs)
+    dims = _check_quant("monarch_fused_q", x, Lq, Ls, Rq, Rs, 0)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return monarch_fused_q_plain(x, Lq, Ls, Rq, Rs)
         raise ValueError("monarch_fused_q: every tensor must be on one CUDA "
                          "device")
-    dev = x.get_device()
-    if (Lq.get_device() != dev or Ls.get_device() != dev
-            or Rq.get_device() != dev or Rs.get_device() != dev):
-        raise ValueError("monarch_fused_q: every tensor must be on one CUDA "
-                         "device")
-    if not (x.is_contiguous() and Lq.is_contiguous() and Ls.is_contiguous()
-            and Rq.is_contiguous() and Rs.is_contiguous()):
-        raise ValueError("monarch_fused_q: tensors must be contiguous")
-    if not (Lq.dtype is torch.int8 and Rq.dtype is torch.int8
-            and Ls.dtype is torch.float32 and Rs.dtype is torch.float32):
-        raise TypeError("monarch_fused_q: factors int8, scales float32")
-    if not fused_fits((k, q, p), (q, s, k)):
-        raise ValueError(f"monarch_fused_q: factors ({k}, {q}, {p}) / "
-                         f"({q}, {s}, {k}) take the staged branch")
-    y = torch.empty((T, q * s), dtype=x.dtype, device=x.device)
-    if T == 0:
-        return y
-    args = _launch_args("monarch_fused_q", k, q, p, s, T, x.dtype, bits)
-    lib = _build.library("monarch", "monarch_fused_q_launch", _Q_ARGTYPES)
-    err = lib.monarch_fused_q_launch(
-        x.data_ptr(), Lq.data_ptr(), Ls.data_ptr(), Rq.data_ptr(),
-        Rs.data_ptr(), y.data_ptr(), args, _build.stream_of(x))
-    _build.check(err, "monarch_fused_q launch")
-    _build.LAUNCHES["monarch_fused_q"] += 1
+    y = torch.empty((x.shape[0], dims[1] * dims[3]), dtype=x.dtype,
+                    device=x.device)
+    if x.shape[0]:
+        _launch_quant("monarch_fused_q", x, Lq, Ls, Rq, Rs, y, dims, 1)
+    return y
+
+
+def monarch_fused_q_experts(x: torch.Tensor, Lq: torch.Tensor,
+                            Ls: torch.Tensor, Rq: torch.Tensor,
+                            Rs: torch.Tensor) -> torch.Tensor:
+    """E stacked quantized products in one launch: x (E, T, k*p), Lq (E,
+    k, q, p[/2]), Ls (E, k, 1, 1), Rq (E, q, s, k[/2]), Rs (E, q, 1, 1) ->
+    (E, T, q*s), ``torch.equal`` to :func:`monarch_fused_q` of each
+    expert."""
+    dims = _check_quant("monarch_fused_q_experts", x, Lq, Ls, Rq, Rs, 1)
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return monarch_fused_q_experts_plain(x, Lq, Ls, Rq, Rs)
+        raise ValueError("monarch_fused_q_experts: every tensor must be on "
+                         "one CUDA device")
+    E, T, _ = x.shape
+    y = torch.empty((E, T, dims[1] * dims[3]), dtype=x.dtype,
+                    device=x.device)
+    if E and T:
+        _launch_quant("monarch_fused_q_experts", x, Lq, Ls, Rq, Rs, y, dims,
+                      E)
     return y
 
 
 __all__ = ["monarch_fused", "monarch_fused_plain", "monarch_fused_q",
-           "monarch_fused_q_plain", "quant_dims", "fused_fits",
+           "monarch_fused_q_plain", "monarch_fused_experts",
+           "monarch_fused_experts_plain", "monarch_fused_q_experts",
+           "monarch_fused_q_experts_plain", "quant_dims", "fused_fits",
            "fused_geometry", "FusedGeometry", "SMEM_BUDGET_BYTES"]

@@ -11,6 +11,14 @@ per-block scales (``core.quant``), through ``monarch_fused_q`` and
 ``bdmm_q``; its fit is the same rule on the UNPACKED shapes, since each
 quantized kernel is its float twin's template with a dequantizing reader.
 
+Both also take a mixture-of-experts layer's stacked experts (factors with
+a leading expert axis, ``L.ndim == 4``; x (E, ..., k*p)), the reference's
+``monarch_mm`` under ``jax.vmap``: a fused shape is ONE launch over the
+expert axis (``monarch_fused_experts`` / ``monarch_fused_q_experts``); a
+staged one (none of the published MoE configs' expert shapes; a
+``:mxu`` or hand-sized one may) loops the experts, two ``bdmm`` /
+``bdmm_q`` launches each, so 2E launches a projection.
+
 ``paged_dispatch`` is THE kernel-vs-dense decision for one paged-attention
 span step, shared by ``models.layers._paged_attend`` and the engine's
 dispatch counters.  Its fit rule is the span kernel's shared memory on
@@ -39,41 +47,62 @@ import torch
 
 from repro_torch.kernels.bdmm import bdmm, bdmm_q
 from repro_torch.kernels.monarch import (fused_fits, monarch_fused,
-                                         monarch_fused_q, quant_dims)
+                                         monarch_fused_experts,
+                                         monarch_fused_q,
+                                         monarch_fused_q_experts, quant_dims)
 from repro_torch.kernels.paged import span_fits as paged_span_fits
 
 
 def monarch_mm(x: torch.Tensor, L: torch.Tensor,
                R: torch.Tensor) -> torch.Tensor:
     """y = x @ M for Monarch factors; x: (..., k*p) -> (..., q*s), in
-    ``x.dtype``."""
-    *batch, din = x.shape
-    k, q, p = L.shape
-    _, s, _ = R.shape
-    xt = x.reshape(-1, din).contiguous()
-    if fused_fits(tuple(L.shape), tuple(R.shape)):
-        y = monarch_fused(xt, L, R)
-    else:  # staged: two bdmm calls, the permutation is a strided read
-        u = bdmm(xt.view(-1, k, p), L)                    # (T, k, q)
-        ut = u.transpose(-1, -2)                          # (T, q, k) view
-        y = bdmm(ut, R).reshape(-1, q * s)                # (T, q, s)
-    return y.reshape(*batch, q * s)
+    ``x.dtype``.  Stacked experts: L (E, k, q, p), R (E, q, s, k), x (E,
+    ..., k*p) -> (E, ..., q*s), expert e's rows through expert e's
+    factors."""
+    k, q, p = L.shape[-3:]
+    experts = L.dim() == 4
+    return _mm(x, (k, q, p, R.shape[-2]), experts,
+               monarch_fused_experts if experts else monarch_fused, bdmm,
+               (L,), (R,))
 
 
 def monarch_mm_q(x: torch.Tensor, Lq: torch.Tensor, Ls: torch.Tensor,
                  Rq: torch.Tensor, Rs: torch.Tensor) -> torch.Tensor:
     """Quantized Monarch matmul: int8/int4 factors + per-block scales,
     dequantized on chip (fp32 accumulate).  x: (..., k*p) -> (..., q*s),
-    in ``x.dtype``."""
-    *batch, din = x.shape
+    in ``x.dtype``; stacked experts as in :func:`monarch_mm`."""
     k, q, p, s, _ = quant_dims(x.shape, Lq, Ls, Rq, Rs)
-    xt = x.reshape(-1, din).contiguous()
+    experts = Lq.dim() == 4
+    return _mm(x, (k, q, p, s), experts,
+               monarch_fused_q_experts if experts else monarch_fused_q,
+               bdmm_q, (Lq, Ls), (Rq, Rs))
+
+
+def _mm(x: torch.Tensor, dims: tuple, experts: bool, fused, stage,
+        Lw: tuple, Rw: tuple) -> torch.Tensor:
+    """The dispatch of both: ``fused(xt, *Lw, *Rw)`` when the shape fits
+    (one launch, over the expert axis too), else two ``stage`` calls a
+    product, the permutation a strided read (per expert: 2E launches)."""
+    k, q, p, s = dims
+    lead = x.shape[:-1]
+    xt = (x.reshape(lead[0], -1, k * p) if experts
+          else x.reshape(-1, k * p)).contiguous()
     if fused_fits((k, q, p), (q, s, k)):
-        y = monarch_fused_q(xt, Lq, Ls, Rq, Rs)
-    else:  # staged: two bdmm_q calls, the permutation is a strided read
-        u = bdmm_q(xt.view(-1, k, p), Lq, Ls)              # (T, k, q)
-        y = bdmm_q(u.transpose(-1, -2), Rq, Rs).reshape(-1, q * s)
-    return y.reshape(*batch, q * s)
+        y = fused(xt, *Lw, *Rw)
+    elif experts:
+        y = torch.stack([_staged(xt[e], stage, [w[e] for w in Lw],
+                                 [w[e] for w in Rw], dims)
+                         for e in range(xt.shape[0])])
+    else:
+        y = _staged(xt, stage, Lw, Rw, dims)
+    return y.reshape(*lead, q * s)
+
+
+def _staged(xt: torch.Tensor, stage, Lw, Rw, dims: tuple) -> torch.Tensor:
+    """xt (T, k*p) -> (T, q*s) through two block-diagonal stages."""
+    k, q, p, s = dims
+    u = stage(xt.view(-1, k, p), *Lw)                 # (T, k, q)
+    return stage(u.transpose(-1, -2), *Rw).reshape(-1, q * s)
 
 
 def bdmm_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Transformer building blocks, attention-stack subset (port of
-``repro.models.layers``): norms, RoPE, GQA attention over no cache or a
-paged KV pool, FFNs, embedding and unembedding.
+``repro.models.layers``): norms, RoPE, GQA attention over no cache, the
+ring or a paged KV pool (KV-chunked without a cache where the config
+asks), FFNs, mixture-of-experts FFNs, embedding and unembedding.
 
 Every parameterized matmul routes through ``core.linear``, so Monarch is a
 global switch (``cfg.monarch``).  Numerics follow the reference where the
@@ -27,12 +28,25 @@ dropped (every query then attends the whole ring), and the attention is
 the dense ``_sdpa`` over the ring under the causal (and window) mask, with
 no kernel in either package.
 
-MoE and cross-attention are not ported yet and raise
-``NotImplementedError``.
+A mixture-of-experts FFN (``moe_init`` / ``moe_apply``) routes as the
+reference does, GShard-style: tokens in fixed-size groups, top-k of the
+router's softmax with padded slots masked out, capacity per group and
+expert by slot priority, the dispatch and combine as einsums, shared
+experts added.  The experts' parameters are stacked on a leading expert
+axis, and every expert runs at once: ``ffn_apply`` on the (E, rows, d)
+dispatch through stacked linears (``core.linear``), which is the
+reference's ``jax.vmap`` of ``ffn_apply`` over the experts and, on the
+kernel backend, one expert-batched launch a projection
+(``kernels.monarch.monarch_fused_experts``).  The router's product and the
+dispatch/combine einsums stay plain PyTorch, as the reference runs them
+outside any kernel.
+
+Cross-attention is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -43,7 +57,7 @@ from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.core.quant import dequantize_kv_pages
 from repro_torch.kernels import kv_write
 from repro_torch.kernels.paged import GLOBAL_WINDOW
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.sharding.api import all_gather_cat, all_reduce_sum
 
 
@@ -151,6 +165,49 @@ def _sdpa(q, k, v, mask, softcap, dtype, fast_scores: bool = False):
     return out.reshape(B, S, H, hd)
 
 
+def _sdpa_chunked(q, k, v, softcap, dtype, chunk: int, window,
+                  bidir: bool):
+    """KV-chunked (flash-style) self-attention without a cache: a running
+    max and sum over KV chunks of ``chunk`` keys bound the scores to (S x
+    chunk), the reference's ``_sdpa_chunked`` (its ``lax.scan`` over the
+    chunks is a loop here).  Causal (and windowed) or bidirectional, the
+    mask computed a chunk at a time.  q: (B,S,H,hd), k/v: (B,T,KV,hd)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    T = k.shape[1]
+    C = min(chunk, T)
+    if T % C:
+        raise ValueError(f"chunked attention: {T} keys in chunks of {C}")
+    qh = q.reshape(B, S, KV, g, hd)
+    qi = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, KV, g, S), -math.inf, device=q.device)
+    l = torch.zeros((B, KV, g, S), device=q.device)
+    acc = torch.zeros((B, KV, g, S, hd), device=q.device)
+    for c0 in range(0, T, C):
+        kcb, vcb = k[:, c0:c0 + C], v[:, c0:c0 + C]
+        dt = _promote(qh, kcb)
+        s = torch.einsum("bskgh,btkh->bkgst", qh.to(dt), kcb.to(dt)).float()
+        s = _softcap(s / math.sqrt(hd), softcap)
+        kj = c0 + torch.arange(C, device=q.device)[None, :]
+        ok = (torch.ones((S, C), dtype=torch.bool, device=q.device) if bidir
+              else kj <= qi)
+        if window is not None:
+            ok = ok & ((qi - kj) < window)
+        s = s + torch.where(ok, 0.0, -1e30)[None, None, None]
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        scale = torch.exp(m - m_new)
+        l = l * scale + torch.sum(p, dim=-1)
+        pv = p.to(dtype)
+        dt = _promote(pv, vcb)
+        acc = acc * scale[..., None] + torch.einsum(
+            "bkgst,btkh->bkgsh", pv.to(dt), vcb.to(dt)).float()
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+    return torch.movedim(out, 3, 1).reshape(B, S, H, hd)
+
+
 def causal_mask(S: int, T: int, offset: int, window: Optional[int],
                 device=None) -> torch.Tensor:
     """(1,1,1,S,T) boolean; query i attends key j iff j <= i+offset and
@@ -245,9 +302,11 @@ def attention_apply(
         out, new_cache = _paged_attend(
             q, k, v, cache, page_table, q_pos, cfg, window, dtype,
             span_len=span_len, write_start=write_start, plan=plan)
+    elif cfg.attn_chunk is not None and S > cfg.attn_chunk:
+        out = _sdpa_chunked(q, _local_kv(k, q, cfg, plan),
+                            _local_kv(v, q, cfg, plan), cfg.logit_softcap,
+                            dtype, cfg.attn_chunk, window, bidir)
     else:
-        if cfg.attn_chunk is not None and S > cfg.attn_chunk:
-            raise NotImplementedError("chunked attention is not ported yet")
         if bidir:
             mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool,
                               device=x.device)
@@ -500,6 +559,127 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Mixture of Experts (GShard-style capacity dispatch, shared + routed)
+# ---------------------------------------------------------------------------
+
+
+def stack_trees(trees: list) -> dict:
+    """Stack a list of identically shaped nested dicts on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The router (dense, ``d_model`` x ``n_slots``), the routed experts'
+    FFNs stacked on a leading axis of ``n_slots`` (padded slots included;
+    routing masks them), and ``n_shared`` shared experts."""
+    mc = cfg.moe
+    de = mc.d_expert or cfg.d_ff
+    sub = dataclasses.replace(cfg, d_ff=de)
+    p = {"router": linear_init(gen, cfg.d_model, mc.n_slots, spec=None),
+         "experts": stack_trees([ffn_init(gen, sub, d_ff=de)
+                                 for _ in range(mc.n_slots)])}
+    for i in range(mc.n_shared):
+        p[f"shared{i}"] = ffn_init(gen, sub, d_ff=de)
+    return p
+
+
+def _route(logits: torch.Tensor, mc: MoEConfig):
+    """The router's choice from its fp32 logits (G, s, n_slots): padded
+    slots masked to -1e30, the softmax, the ``top_k`` most probable slots
+    and their gates renormalised to sum to 1.  Returns (probs, gates (G,
+    s, k), slots (G, s, k)).
+
+    ``jax.lax.top_k`` takes the lower index first among equal values;
+    a stable descending sort keeps equal values in index order, so its
+    first ``top_k`` are the same slots in the same order (``torch.topk``
+    promises no order among ties)."""
+    if mc.n_slots > mc.n_experts:
+        ok = torch.arange(mc.n_slots, device=logits.device) < mc.n_experts
+        logits = torch.where(ok, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[..., :mc.top_k], idx[..., :mc.top_k]
+    return probs, gates / torch.sum(gates, dim=-1, keepdim=True), idx
+
+
+def _dispatch(idx: torch.Tensor, gates: torch.Tensor, E: int, cap: int,
+              dtype: torch.dtype):
+    """GShard's slot-priority capacity: for each of the k choices in turn,
+    a token takes the next free capacity slot of its expert within its
+    group (a ``cumsum`` over the group's tokens), dropped once ``cap`` are
+    taken.  Returns (dispatch (G, s, E, cap) in ``dtype``, combine (G, s,
+    E, cap) fp32: the gate where the token was kept).  One-hots are
+    comparisons with an ``arange``: no value is read on the host."""
+    G, sg, k = idx.shape
+    slots = torch.arange(E, device=idx.device)
+    caps = torch.arange(cap, device=idx.device)
+    dispatch = torch.zeros((G, sg, E, cap), dtype=dtype, device=idx.device)
+    combine = torch.zeros((G, sg, E, cap), device=idx.device)
+    counts = torch.zeros((G, E), dtype=torch.long, device=idx.device)
+    for k_slot in range(k):
+        sel = (idx[..., k_slot, None] == slots).long()              # (G,s,E)
+        # the running count over the group's tokens, scanned along the
+        # innermost axis (PyTorch's scan over an outer axis of a CUDA
+        # tensor is far slower); integers, so the same values
+        run = torch.cumsum(sel.transpose(1, 2).contiguous(), dim=-1)
+        pos = run.transpose(1, 2) - 1 + counts[:, None, :]
+        counts = counts + torch.sum(sel, dim=1)
+        keep = (pos < cap) & (sel > 0)
+        oh = (torch.where(keep, pos, 0)[..., None] == caps).to(dtype)
+        oh = oh * keep[..., None].to(dtype)                         # (G,s,E,c)
+        dispatch = dispatch + oh
+        combine = combine + (oh.float() * gates[..., k_slot, None, None]
+                             * sel[..., None].float())
+    return dispatch, combine
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              backend: str = "einsum",
+              lb_loss: bool = True) -> tuple[torch.Tensor, dict]:
+    """Grouped GShard dispatch (the reference's ``moe_apply``): the B*S
+    tokens routed within groups of ``group_size`` (halved until it tiles
+    them), capacity ``max(4, int(capacity_factor * group * top_k /
+    n_experts))`` a group and expert; every slot's capacity rows run
+    through its expert (the padded slots' and the unused rows too, as in
+    the reference), the combine weights them by the renormalised gates,
+    and the shared experts see every token.  Returns (output (B, S, d),
+    {"lb_loss": the Switch/GShard load-balance loss E * sum_e f_e * p_e});
+    ``lb_loss=False`` (a serving step, which drops it) returns {}."""
+    mc: MoEConfig = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    sg = min(mc.group_size, T)
+    while T % sg:
+        sg //= 2
+    G = T // sg
+    xt = x.reshape(G, sg, d)
+    probs, gates, idx = _route(linear_apply(params["router"], xt).float(),
+                               mc)
+    E = mc.n_slots
+    cap = max(4, int(mc.capacity_factor * sg * mc.top_k / mc.n_experts))
+    dispatch, combine = _dispatch(idx, gates, E, cap, x.dtype)
+    dt = _promote(dispatch, xt)
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xt.to(dt))
+    sub = dataclasses.replace(cfg, d_ff=mc.d_expert or cfg.d_ff)
+    expert_out = ffn_apply(params["experts"],
+                           expert_in.reshape(E, G * cap, d), sub,
+                           backend).reshape(E, G, cap, d)
+    cw = combine.to(x.dtype)
+    dt = _promote(cw, expert_out)
+    out = torch.einsum("gsec,egcd->gsd", cw.to(dt), expert_out.to(dt))
+    for i in range(mc.n_shared):
+        out = out + ffn_apply(params[f"shared{i}"], xt, sub, backend)
+    if not lb_loss:
+        return out.reshape(B, S, d), {}
+    frac = torch.mean((idx[..., 0, None] == torch.arange(
+        E, device=x.device)).float(), dim=(0, 1))
+    mean_prob = torch.mean(probs, dim=(0, 1))
+    return out.reshape(B, S, d), {"lb_loss": E * torch.sum(frac * mean_prob)}
+
+
+# ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
@@ -560,6 +740,6 @@ __all__ = [
     "norm_init", "norm_apply", "rope",
     "attention_init", "attention_apply", "attention_cache_init",
     "paged_cache_init", "causal_mask",
-    "ffn_init", "ffn_apply", "embedding_init", "embed", "unembed",
-    "GLOBAL_WINDOW",
+    "ffn_init", "ffn_apply", "moe_init", "moe_apply", "stack_trees",
+    "embedding_init", "embed", "unembed", "GLOBAL_WINDOW",
 ]

@@ -19,8 +19,13 @@ Public API:
                                                   -> (logits, pool)
 
 The ring cache and the paged pool are written in place: the reference
-donates them to its jitted steps.  SSM, hybrid, MoE and encoder-decoder
-stacks and training are not ported yet and raise ``NotImplementedError``.
+donates them to its jitted steps.  A block may carry gemma2's sandwich
+norms (``ln1_post`` / ``ln2_post`` on each sublayer's output) and a
+mixture-of-experts FFN (``moe``) in place of ``ffn``; the stack's ``aux``
+holds the MoE load-balance loss, averaged over the layers as the
+reference does.  SSM, hybrid and encoder-decoder stacks, modality
+frontends and training are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,20 +48,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.layer_kind != "attn":
         raise NotImplementedError(f"{cfg.layer_kind} stacks are not ported")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet")
     if cfg.encdec or cfg.frontend is not None:
         raise NotImplementedError(
             "encoder-decoder and modality frontends are not ported yet")
-    if cfg.sandwich_norm:
-        raise NotImplementedError("sandwich norms are not ported yet")
-
-
-def _stack(trees: list) -> dict:
-    """Stack a list of identically shaped nested dicts on a new axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -67,38 +61,59 @@ def layer_params(stacked: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# One decoder block (attention mixer + FFN)
+# One decoder block (attention mixer + FFN/MoE)
 # ---------------------------------------------------------------------------
 
 
 def attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dev = gen.device
-    return {
+    p = {
         "ln1": L.norm_init(cfg.d_model, cfg.norm_type, device=dev),
         "attn": L.attention_init(gen, cfg),
         "ln2": L.norm_init(cfg.d_model, cfg.norm_type, device=dev),
-        "ffn": L.ffn_init(gen, cfg),
     }
+    if cfg.moe is not None:
+        p["moe"] = L.moe_init(gen, cfg)
+    else:
+        p["ffn"] = L.ffn_init(gen, cfg)
+    if cfg.sandwich_norm:
+        p["ln1_post"] = L.norm_init(cfg.d_model, cfg.norm_type, device=dev)
+        p["ln2_post"] = L.norm_init(cfg.d_model, cfg.norm_type, device=dev)
+    return p
 
 
 def attn_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      window=None, cache: Optional[dict] = None, pos=None,
                      page_table=None, span_len=None, write_start=None,
-                     bidir: bool = False, plan=None) -> torch.Tensor:
+                     bidir: bool = False, plan=None,
+                     aux: Optional[dict] = None) -> torch.Tensor:
     """One decoder block; a paged cache is written in place.  Under a
     tensor-parallel ``plan`` the block's activations are whole on every
     rank between the sublayers (each ends in its row-parallel
-    all-reduce)."""
+    all-reduce).  An MoE block adds its load-balance loss to
+    ``aux["lb_loss"]`` when ``aux`` is given."""
     h = L.norm_apply(p["ln1"], x, cfg.norm_type)
     a, _ = L.attention_apply(
         p["attn"], h, cfg, window=window,
         cache=cache["attn"] if cache else None, pos=pos,
         page_table=page_table, span_len=span_len, write_start=write_start,
         bidir=bidir, backend=cfg.monarch.backend, plan=plan)
+    if cfg.sandwich_norm:
+        a = L.norm_apply(p["ln1_post"], a, cfg.norm_type)
     x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm_type)
-    return x + L.ffn_apply(p["ffn"], h, cfg, backend=cfg.monarch.backend,
-                           plan=plan)
+    if "moe" in p:
+        f, moe_aux = L.moe_apply(p["moe"], h, cfg,
+                                 backend=cfg.monarch.backend,
+                                 lb_loss=aux is not None)
+        if aux is not None:
+            aux["lb_loss"] = aux["lb_loss"] + moe_aux["lb_loss"]
+    else:
+        f = L.ffn_apply(p["ffn"], h, cfg, backend=cfg.monarch.backend,
+                        plan=plan)
+    if cfg.sandwich_norm:
+        f = L.norm_apply(p["ln2_post"], f, cfg.norm_type)
+    return x + f
 
 
 # ---------------------------------------------------------------------------
@@ -113,26 +128,34 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
 
 def decoder_stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     _check_ported(cfg)
-    return {"layers": _stack([attn_block_init(gen, cfg)
-                              for _ in range(cfg.n_layers)])}
+    return {"layers": L.stack_trees([attn_block_init(gen, cfg)
+                                     for _ in range(cfg.n_layers)])}
 
 
 def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                         cache: Optional[dict] = None, pos=None,
                         page_table=None, span_len=None, write_start=None,
                         bidir: bool = False, train: bool = False,
-                        plan=None):
-    """Loops the stacked layers; returns (x, cache, aux).  A paged cache is
-    updated in place and returned as given."""
+                        plan=None, aux_loss: bool = True):
+    """Loops the stacked layers; returns (x, cache, aux), ``aux`` holding
+    the MoE load-balance loss summed over the layers over ``n_layers`` (0
+    for a dense stack).  ``aux_loss=False`` (the serving steps, which
+    drop it as the reference's jitted steps do) computes no loss and
+    returns an empty ``aux``.  A paged cache is updated in place and
+    returned as given."""
     _check_ported(cfg)
+    aux = ({"lb_loss": torch.zeros((), dtype=torch.float32,
+                                   device=x.device)} if aux_loss else None)
     for i, win in enumerate(layer_windows(cfg)):
         p = layer_params(params["layers"], i)
         c = layer_params(cache["layers"], i) if cache is not None else None
         x = attn_block_apply(
             p, x, cfg, window=win, cache=c, pos=pos, page_table=page_table,
             span_len=span_len, write_start=write_start, bidir=bidir,
-            plan=plan)
-    aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+            plan=plan, aux=aux)
+    if aux is None:
+        return x, cache, {}
+    aux["lb_loss"] = aux["lb_loss"] / cfg.n_layers
     return x, cache, aux
 
 
@@ -192,7 +215,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     pos = cache["pos"]
     x = L.embed(params["embedding"], tokens[:, None], cfg, dtype)
     x, _, _ = decoder_stack_apply(params["decoder"], x, cfg, cache=cache,
-                                  pos=pos)
+                                  pos=pos, aux_loss=False)
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
     logits = L.unembed(params["embedding"], x, cfg)
     pos.add_(1)
@@ -216,7 +239,7 @@ def prefill_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
     pos = cache["pos"]
     x = L.embed(params["embedding"], tokens, cfg, dtype)
     x, _, _ = decoder_stack_apply(params["decoder"], x, cfg, cache=cache,
-                                  pos=pos)
+                                  pos=pos, aux_loss=False)
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
     logits = L.unembed(params["embedding"], x[:, -1:], cfg)
     pos.add_(S)
@@ -287,7 +310,7 @@ def paged_mixed_step(params: dict, tokens: torch.Tensor, start: torch.Tensor,
     x, pool, _ = decoder_stack_apply(
         params["decoder"], x, cfg, cache=pool, pos=start,
         page_table=page_table, span_len=span_len, write_start=write_start,
-        plan=plan)
+        plan=plan, aux_loss=False)
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
     idx = (torch.clamp(span_len.long(), min=1) - 1)[:, None, None]
     xl = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))  # (B,1,d)

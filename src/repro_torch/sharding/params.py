@@ -176,10 +176,20 @@ def _part_widths(path: str, n: int, groups: tuple[str, ...], n_heads: int,
 def tp_plan(tree, cfg: ModelConfig, mesh) -> TPPlan:
     """Which groups split over ``mesh``'s ``tp``-way ``"model"`` axis:
     each one whose every split dim ``tp`` divides (and, for heads, whose
-    head counts it divides); KV heads only where the pool splits too."""
+    head counts it divides); KV heads only where the pool splits too.
+    Norms without a rule (gemma2's ``ln1_post`` / ``ln2_post`` too) stay
+    whole on every rank.  A mixture-of-experts model at ``tp`` > 1 raises
+    ``NotImplementedError``: it needs expert parallelism."""
     from repro_torch.serving.device_kv import kv_shard_size
 
     tp = mesh.model
+    if cfg.moe is not None and tp > 1:
+        # the reference shards the stacked experts over "model"
+        # (repro/sharding/params.py:48-52): expert parallelism
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers at tp = {tp} need expert "
+            f"parallelism (experts over the \"model\" axis), which is not "
+            f"ported yet")
     ok = {g: tp > 1 for g in GROUPS}
     ok["heads"] &= cfg.n_heads % tp == 0
     ok["vocab"] &= cfg.vocab_padded % tp == 0

@@ -1,5 +1,6 @@
-"""The engines at the four reference configurations whose layers the
-port has (bert-large-lm, codeqwen1.5-7b, minicpm-2b, nemotron-4-15b),
+"""The engines at the seven reference configurations whose layers the
+port has besides gpt2-medium (bert-large-lm, codeqwen1.5-7b, minicpm-2b,
+nemotron-4-15b, gemma2-27b, granite-moe-1b-a400m, qwen2-moe-a2.7b),
 against the JAX reference engine on the CPU.
 
 At each ``.reduced()`` configuration, with the kernels on (Monarch
@@ -24,9 +25,15 @@ from repro.configs import get_config as jget_config
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
+from _torch_numpy_params import both
 
 INT8_KV_TOKEN_AGREEMENT = 0.95        # tests/test_kv_quant.py:352
-ARCHS = ["bert-large-lm", "codeqwen1.5-7b", "minicpm-2b", "nemotron-4-15b"]
+ARCHS = ["bert-large-lm", "codeqwen1.5-7b", "minicpm-2b", "nemotron-4-15b",
+         "gemma2-27b", "granite-moe-1b-a400m", "qwen2-moe-a2.7b"]
+# the reference's initializer takes ~15 s a model for the MoE configs on
+# the CPU: these configs' params come from numpy at a seed, in its layout
+# and at its scales (tests/_torch_numpy_params.py)
+NUMPY_PARAMS = {"gemma2-27b", "granite-moe-1b-a400m", "qwen2-moe-a2.7b"}
 
 
 def _kernels_on(cfg):
@@ -44,9 +51,12 @@ def _model(arch):
     if arch not in _MODELS:
         jc = _kernels_on(jget_config(arch).reduced())
         tc = _kernels_on(tget_config(arch).reduced())
-        jp = JT.init_params(jax.random.PRNGKey(0), jc)
-        tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
-                               device="cpu")
+        if arch in NUMPY_PARAMS:
+            jp, tp = both(jc)
+        else:
+            jp = JT.init_params(jax.random.PRNGKey(0), jc)
+            tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   device="cpu")
         _MODELS[arch] = (jc, tc, jp, tp)
     return _MODELS[arch]
 
@@ -113,7 +123,9 @@ def test_engine_greedy_tokens_identical_to_reference(arch, trace):
     assert all(len(o) == 5 for o in tout)
     for key in STAT_KEYS:
         assert teng.stats[key] == jeng.stats[key], key
-    assert teng.stats["kernel_dispatches"] == teng.stats["mixed_steps"]
+    # gemma2-27b's attention softcap has no span kernel in either package
+    assert teng.stats["kernel_dispatches"] == (
+        0 if jc.logit_softcap else teng.stats["mixed_steps"])
     if trace == "preemption":
         assert teng.stats["preemptions"] > 0
     if trace == "prefix_cow":

@@ -395,8 +395,9 @@ def test_fused_geometry_slab_override_tiles_the_output_once(name, slab, T):
 
 def test_launch_args_pack_the_geometry_in_the_kernels_order():
     """One int array per launch (csrc/monarch.cu: Args): shape, geometry,
-    x's dtype code, then the factors' dtype code or bits; an unsupported
-    dtype raises before any launch."""
+    x's dtype code, then the factors' dtype code or bits, then the experts
+    of a stacked launch (1 for a single product; the geometry is one
+    expert's); an unsupported dtype raises before any launch."""
     from repro_torch.kernels.monarch import _launch_args
 
     (k, q, p), (_, s, _) = SERVING_SHAPES["w2"]
@@ -404,11 +405,13 @@ def test_launch_args_pack_the_geometry_in_the_kernels_order():
     head = [8, k, q, p, s, geo.tile_t, geo.q_group, geo.slab, geo.chunk,
             geo.grid, geo.threads, geo.smem_bytes]
     assert list(_launch_args("t", k, q, p, s, 8, torch.bfloat16,
-                             torch.bfloat16)) == head + [1, 1]
+                             torch.bfloat16)) == head + [1, 1, 1]
+    assert list(_launch_args("t", k, q, p, s, 8, torch.bfloat16,
+                             torch.bfloat16, E=64)) == head + [1, 1, 64]
     geo = fused_geometry((k, q, p), (q, s, k), 8, 4, 4)
     assert list(_launch_args("t", k, q, p, s, 8, torch.float32, 4)) == [
         8, k, q, p, s, geo.tile_t, geo.q_group, geo.slab, geo.chunk,
-        geo.grid, geo.threads, geo.smem_bytes, 0, 4]
+        geo.grid, geo.threads, geo.smem_bytes, 0, 4, 1]
     geo = fused_geometry((k, q, p), (q, s, k), 8, 2, 32, slab=5)
     assert list(_launch_args("t", k, q, p, s, 8, torch.bfloat16,
                              torch.float32, 5))[7:10] == [5, geo.chunk,

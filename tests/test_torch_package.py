@@ -169,6 +169,12 @@ def test_cpu_wrappers_count_no_launches():
 
     qc = quantize_monarch({"L": L, "R": R}, bits=4)
     ops.monarch_mm_q(x, qc["Lq"], qc["Ls"], qc["Rq"], qc["Rs"])
+    # stacked experts: the expert-batched wrappers' plain paths
+    xe, Le, Re = x.expand(2, 4, 64), L.expand(2, 4, 4, 16), \
+        R.expand(2, 4, 16, 4)
+    ops.monarch_mm(xe, Le, Re)
+    qe = quantize_monarch({"L": Le, "R": Re}, bits=8)
+    ops.monarch_mm_q(xe, qe["Lq"], qe["Ls"], qe["Rq"], qe["Rs"])
     from repro_torch.kernels.sample import sample_tokens
 
     sample_tokens(torch.randn(2, 70), torch.tensor([0.0, 0.9]),
@@ -177,6 +183,8 @@ def test_cpu_wrappers_count_no_launches():
     assert launches() == {"monarch_fused": 0, "bdmm": 0,
                           "paged_attention_span": 0, "monarch_fused_q": 0,
                           "bdmm_q": 0, "paged_attention_span_q": 0,
+                          "monarch_fused_experts": 0,
+                          "monarch_fused_q_experts": 0,
                           "paged_attention_span_sharded": 0,
                           "paged_attention_span_sharded_q": 0,
                           "quantize_kv_write": 0, "sample_tokens": 0}
