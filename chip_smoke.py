@@ -7,6 +7,8 @@
 
     PYTHONPATH=src python3 chip_smoke.py --serves  # profiled serves alone
 
+    PYTHONPATH=src python3 chip_smoke.py --families  # 2n and 3h alone
+
 Phases, each printed as one JSON object per line:
 
   1. build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``,
@@ -55,7 +57,11 @@ Phases, each printed as one JSON object per line:
               qwen2-moe-a2.7b's and granite-moe-1b-a400m's expert call
               sets, decode and prefill rows, bf16 and fp32 x, each
               torch.equal to a loop of single-expert launches, B4 bitwise
-              B1 on the dequantized factors
+              B1 on the dequantized factors; B1 and B2 at the shapes of
+              phase 3h's configs (2n: odd block widths, block counts that
+              are no power of two, internvl2-76b's staged pairs), T = 8
+              and 512, bf16 and fp32 x (B1 also bf16 factors) against
+              their plain versions (``--families`` runs 2n and 3h alone)
   3. serve    gpt2-medium at full width (24 layers, published bf16 dtype,
               seeded random weights) served by the continuous-batching
               engine through the Monarch and paged-attention kernels, each
@@ -91,7 +97,7 @@ Phases, each printed as one JSON object per line:
               then one greedy ServeEngine generate (B = 8, prompt 64, 16
               new tokens; the first GQA ring on the card: B1, B2, X3)
   3d. paper   the paper's pipeline: gpt2-medium:dense (fp32, seed 0, full
-              width, 12 of its 24 layers) D2S-converted on the card (core/d2s.py: q, k, v, o,
+              width, 8 of its 24 layers) D2S-converted on the card (core/d2s.py: q, k, v, o,
               w1, w2) and on the CPU from the same dense tensors, every
               matrix within D2S_REL_TOL card vs CPU, with the card's
               seconds; the converted model served (B1, B3, X3, graphs)
@@ -160,6 +166,31 @@ Phases, each printed as one JSON object per line:
               first, a difference allowed only at a printed near tie,
               then its logits within PARITY_REL_TOL, and a greedy trace's
               routes and tokens
+  3h. families mamba2-2.7b (64 layers) and zamba2-7b (81: 13 groups of 6
+              Mamba layers under one shared attention block, a tail of 3)
+              at full width and depth, seeded fp32 weights cast to bf16 as
+              the reference's serve step casts them (its stacks do not run
+              bf16 activations over fp32 weights), through the legacy
+              ServeEngine (B = 8, a 64-token prompt token by token through
+              the decode graph, 32 new; greedy and at 0.8): launches a
+              generate = an eager step's times its steps, a replay
+              torch.equal to an eager decode_step (the Mamba states
+              written in place), a profiled decode window, a profiled
+              forward at S = 512 with ssd_chunked's device ms, card vs
+              CPU fp32 at 2 layers (zamba2: one group and its tail):
+              logits, decode logits, states; seamless-m4t-large-v2 (24 +
+              24 layers, vocab 256206): enc_out from 8 x 1024 frames, the
+              serving steps' prefill logits and the prompt token by token
+              with enc_out, 16 greedy tokens, a decode step's device ms
+              and its cross-attention K/V recompute's, card vs CPU at 2 +
+              2 layers; internvl2-76b (80 layers, d 8192, GQA 64 / 8): a
+              prefill with 256 patch embeddings, the continuous-batching
+              engine's text serve (B1, B2, B3, X3) with replays
+              torch.equal to eager steps and a profiled window, card vs
+              CPU at 2 layers; qwen2-moe-a2.7b's dense-attention step run
+              twice (the sink page's colliding writes: logits, pages,
+              routes torch.equal); the serve_decode example at
+              ``--arch mamba2-2_7b``
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
@@ -258,10 +289,11 @@ INT8_KV_STEP_REL_TOL = 3e-2
 # differ by that rounding (~1e-7); an fp32 SVD would differ by ~1e-5 at
 # 32 x 32 slices that nearly tie
 D2S_REL_TOL = 1e-5
-# layers of the D2S-converted gpt2-medium (phase 3d): half its 24, which
-# keeps the run inside its time as phases are added (over 24 layers the
-# host's side of the conversion alone takes one to three minutes)
-D2S_LAYERS = 12
+# layers of the D2S-converted gpt2-medium (phase 3d): a third of its 24,
+# which keeps the run inside its time as phases are added (over 24 layers
+# the host's side of the conversion alone takes one to three minutes;
+# 12 until phase 3h came)
+D2S_LAYERS = 8
 # the CPU side of the nemotron-4-15b layer's D2S check: every 16th row of
 # (p x s) slices of each matrix (the slices project independently)
 D2S_NEMOTRON_CPU_EVERY = 16
@@ -301,6 +333,15 @@ FT_FAULT_KINDS = ("pool_exhaustion", "dispatch_failure", "clock_skew",
 RING_BATCH = 8
 RING_PROMPT = 128
 RING_NEW = 32
+# phase 3h's ServeEngine generates (mamba2-2.7b, zamba2-7b): batch, prompt
+# tokens (token by token through the decode graph), new tokens
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 8, 64, 32
+# phase 3h's seamless-m4t-large-v2: batch, decoder prompt, new tokens (the
+# encoder reads its n_frontend_tokens frames a row)
+ENC_BATCH, ENC_PROMPT, ENC_NEW = 8, 16, 16
+# phase 3h's internvl2-76b prefill: text tokens a row after its
+# n_frontend_tokens patch embeddings
+VLM_TEXT = 32
 
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
            "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
@@ -369,6 +410,16 @@ PROFILED_SHARE = 0.9
 WITNESS_READINGS = 3
 # ranks of the tensor-parallel phase: processes that share the one card
 TP = 2
+# B1's and B2's call sets at phase 3h's configs (2n): (din, dout) at the
+# paper policy; B1 (fused) ...
+FAMILY_FUSED = {"mamba2_in_proj_s661": (2560, 10576),
+                "mamba2_out_proj_k80": (5120, 2560),
+                "zamba2_out_proj_k112": (7168, 3584)}
+# ... and B2 (staged), each a list of projections as in BDMM_CALL_SETS
+FAMILY_STAGED = {"h_zamba2_in_proj_s911": [(3584, 14576)],
+                 "i_zamba2_w2_p112": [(14336, 3584)],
+                 "j_internvl2_wq_nb128": [(8192, 8192)],
+                 "k_internvl2_w2_k224_q256": [(28672, 8192)]}
 # B2/B5's call sets: the projections (din, dout) whose factors take the
 # staged branch, their blocks (None: make_dims' paper policy) and how many
 # leading projections the quantized decode path fuses into one (B5's
@@ -410,6 +461,33 @@ def bound_ms(n_bytes: float, flops: float, all_bf16: bool,
         peak = BF16_FLOPS_PER_S if all_bf16 else FP32_FLOPS_PER_S
     tb, tf = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def _device_ms(fn, n: int = 10) -> float:
+    """Device kernel time of one ``fn()`` from torch.profiler: what the
+    card spends, without the host's time to issue the launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum((getattr(e, "self_device_time_total", None)
+                or e.self_cuda_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def _card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def _ptxas_report(log: str) -> list:
@@ -1039,24 +1117,24 @@ def _replay_vs_eager(eng) -> dict:
     """One replay of each captured bucket, on the latest packed input the
     serve gave it, against ``_packed_step`` run eagerly on the same input,
     a clone of the pool, of the chained token and of the keys: the sampled
-    tokens, the logits, the token and keys after the step and every page
-    and scale ``torch.equal``.  A float pool's sink page (page 0) is left out: the
-    padding rows' writes collide there, and an index_put on the card
-    resolves duplicates in no fixed order (the int8 pool's kernel does,
-    so its sink is compared too).  The logits are compared on every row
-    where the span kernel runs (it writes a row without a span as zeros);
-    where a softcap sends attention to the dense gather (gemma2-27b), on
-    the rows with a span only: a row without one has no output (its
-    logits are garbage in both packages) and its query attends the sink
-    page, whose colliding writes differ between runs.  The engine's pool
-    takes the replay's writes: it is not served after this."""
+    tokens, the logits of every row, the token and keys after the step
+    and every page and scale ``torch.equal``.  Where the dense gather runs
+    (gemma2-27b's softcap, ``paged_kernel=False``) the padding rows'
+    colliding writes on the sink page (page 0) all carry the last one's
+    value (``models/layers.py:last_writes``), so a row without a span,
+    whose query reads the sink, reads the same rows in both, and the sink
+    is compared too.  Where the span kernel runs, a float pool's sink is
+    left out: the kernel never reads it, and an index_put on the card
+    resolves its duplicates in no fixed order (the int8 pool's kernel
+    keeps the last, so its sink is compared).  The engine's pool takes
+    the replay's writes: it is not served after this."""
     import torch
 
     from repro_torch import tree_map
 
     g = _graphs(eng)
+    racy_sink = eng._kernel_decision() == "kernel"
     out = {}
-    all_rows = eng._kernel_decision() != "softcap"
     for S, packed in sorted(g.inputs_seen.items()):
         pool = tree_map(torch.clone, eng.pool)
         tok = eng._tok.clone()
@@ -1070,15 +1148,10 @@ def _replay_vs_eager(eng) -> dict:
         mine = []
         tree_map(mine.append, eng.pool)
         pages = all(torch.equal(a[:, 1:], b[:, 1:])
-                    if a.dim() == 5 and a.dtype != torch.int8
+                    if racy_sink and a.dim() == 5 and a.dtype != torch.int8
                     else torch.equal(a, b) for a, b in zip(mine, pools))
-        B = eng.max_slots
-        Sb = S[0] if isinstance(S, tuple) else S
-        spans = torch.from_numpy(packed[B * Sb + B:B * Sb + 2 * B] > 0).to(
-            l_g.device)
-        rows = slice(None) if all_rows else spans
         out[str(S)] = {"sampled": torch.equal(s_g, s_e),
-                       "logits": torch.equal(l_g[rows], l_e[rows]),
+                       "logits": torch.equal(l_g, l_e),
                        "token": torch.equal(eng._tok, tok),
                        "keys": torch.equal(eng._keys, keys),
                        "pages_and_scales": pages,
@@ -1087,6 +1160,22 @@ def _replay_vs_eager(eng) -> dict:
                 f"bucket {S}: the replay differs from the eager step: "
                 f"{out[str(S)]}")
     return out
+
+
+def _graphs_replayed(eng, what: str, compare: bool = True) -> dict:
+    """Every step of a tp = 1 serve on the card replays a captured graph
+    but each bucket's first; with ``compare``, each bucket's replay is the
+    eager step (:func:`_replay_vs_eager`)."""
+    stats = _graph_stats(eng)
+    require(stats is not None and stats["replays"] > 0
+            and stats["captures"] == len(stats["buckets"])
+            and stats["captures"] + stats["replays"]
+            == eng.stats["mixed_steps"],
+            f"{what}: every step but a bucket's first must replay its "
+            f"graph: {stats}")
+    if compare:
+        stats["replay_vs_eager"] = _replay_vs_eager(eng)
+    return stats
 
 
 def _cow_window(cfg, params, **engine_kw) -> dict:
@@ -1727,8 +1816,9 @@ def _phase_ft(dev) -> None:
 def _ring_window(dev, step, n: int) -> dict:
     """``n`` calls of ``step`` (one decode step each): wall ms a step of
     the synchronized loop, and torch.profiler's device ms a step, the
-    launch families' kernels a step (PROFILED) and the top kernels (ms
-    and launches a step; one profile a step)."""
+    device ms of PyTorch's own kernels (outside the PROFILED families),
+    the launch families' kernels a step (PROFILED) and the top kernels
+    (ms and launches a step; one profile a step)."""
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(n):
@@ -1741,8 +1831,11 @@ def _ring_window(dev, step, n: int) -> dict:
             for name in PROFILED}
     top = sorted(((us / 1e3 / n, key, k / n)
                   for key, (us, k) in by_key.items()), reverse=True)[:8]
+    own = sum(us for key, (us, _) in by_key.items()
+              if not any(name in key for name in PROFILED)) / 1e3 / n
     return {"wall_ms_per_step": wall * 1e3, "device_ms_per_step": device,
             "device_busy_share": device / (wall * 1e3),
+            "pytorch_kernels_ms_per_step": own,
             "kernels_per_step_profiled": seen,
             "launches_per_step_profiled": sum(k for _, k in by_key.values())
             / n,
@@ -2006,10 +2099,11 @@ def _ring_nemotron(cfg, params, dev) -> dict:
     return counts
 
 
-def _example_runs(dev) -> list:
+def _example_runs(dev, variants=([], ["--engine", "legacy"])) -> list:
     """``python -m repro_torch.examples.serve_decode`` in-process on the
-    card (runpy): the default engine, then ``--engine legacy``; each must
-    end "serve OK" with B1's launches counted in its report."""
+    card (runpy), once with each argument list of ``variants`` (3f: the
+    default engine, then ``--engine legacy``; 3h: ``--arch mamba2-2_7b``);
+    each must end "serve OK" with B1's launches counted in its report."""
     import contextlib
     import io
     import runpy
@@ -2017,7 +2111,7 @@ def _example_runs(dev) -> list:
     from repro_torch.kernels import launches, reset_launches
 
     out = []
-    for extra in ([], ["--engine", "legacy"]):
+    for extra in variants:
         buf = io.StringIO()
         argv = sys.argv
         sys.argv = ["serve_decode", *extra]
@@ -2236,7 +2330,7 @@ def _moe_parity(cfg, dev, seed: int = 3) -> dict:
     return line
 
 
-def _phase_moe(dev, graphs_replayed, serve_counts: dict) -> None:
+def _phase_moe(dev, serve_counts: dict) -> None:
     """Phase 3g: qwen2-moe-a2.7b and granite-moe-1b-a400m at full width
     and depth (bf16, seed-0 random weights) served through the engine's
     step graphs, qwen2 float and with int8 factors and fused projections;
@@ -2252,15 +2346,10 @@ def _phase_moe(dev, graphs_replayed, serve_counts: dict) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    def on(cfg):
-        return dataclasses.replace(cfg, paged_kernel=True,
-                                   monarch=dataclasses.replace(
-                                       cfg.monarch, backend="pallas"))
-
     qopts = dict(quantize="int8", fuse_projections=True)
     for arch, variants in (("qwen2-moe-a2.7b", ({}, qopts)),
                            ("granite-moe-1b-a400m", ({},))):
-        cfg = on(get_config(arch))
+        cfg = _on(get_config(arch))
         mc = cfg.moe
         params = T.init_params(cfg, seed=0, device=dev)
         for opts in variants:
@@ -2281,7 +2370,7 @@ def _phase_moe(dev, graphs_replayed, serve_counts: dict) -> None:
                     "launches": counts,
                     "expert_keys": sorted(
                         eng.params["decoder"]["layers"]["moe"]["experts"]),
-                    "graphs": graphs_replayed(eng, f"{arch} serve")}
+                    "graphs": _graphs_replayed(eng, f"{arch} serve")}
             emit(line)
             other = "monarch_fused_experts" if q else \
                 "monarch_fused_q_experts"
@@ -2312,7 +2401,7 @@ def _phase_moe(dev, graphs_replayed, serve_counts: dict) -> None:
         del params
         torch.cuda.empty_cache()
     # gemma2-27b: sandwich norms, local/global windows, softcaps, GeGLU
-    cfg = on(get_config("gemma2-27b"))
+    cfg = _on(get_config("gemma2-27b"))
     params = T.init_params(cfg, seed=0, device=dev)
     kw = dict(max_len=512)
     eng, reqs, counts, dt, n_out, prompt_toks = _serve(
@@ -2322,7 +2411,7 @@ def _phase_moe(dev, graphs_replayed, serve_counts: dict) -> None:
           "prompt_tokens": prompt_toks, "new_tokens": n_out, "seconds": dt,
           "tokens_per_s": n_out / dt, "steps": eng.stats["mixed_steps"],
           "dense_fallback_softcap": eng.stats["dense_fallback_softcap"],
-          "launches": counts, "graphs": graphs_replayed(eng, "gemma2 serve")})
+          "launches": counts, "graphs": _graphs_replayed(eng, "gemma2 serve")})
     require(counts["monarch_fused"] > 0 and counts["bdmm"] > 0
             and counts["paged_attention_span"] == 0
             and eng.stats["dense_fallback_softcap"]
@@ -2335,8 +2424,570 @@ def _phase_moe(dev, graphs_replayed, serve_counts: dict) -> None:
     del params
     torch.cuda.empty_cache()
     for arch in ("qwen2-moe-a2.7b", "granite-moe-1b-a400m", "gemma2-27b"):
-        _moe_parity(on(get_config(arch)), dev)
+        _moe_parity(_on(get_config(arch)), dev)
         torch.cuda.empty_cache()
+
+
+# -- phase 3h: Mamba2, the Zamba2 hybrid, the encoder-decoder and the vision
+# frontend --------------------------------------------------------------------
+
+def _on(cfg):
+    """``cfg`` with the kernels on: every Monarch projection through B1/B2
+    (``backend="pallas"``), attention through the span kernel."""
+    return dataclasses.replace(cfg, paged_kernel=True,
+                               monarch=dataclasses.replace(
+                                   cfg.monarch, backend="pallas"))
+
+
+def _counted() -> dict:
+    """The launch counters that moved since their last reset."""
+    from repro_torch.kernels import launches
+
+    return {k: v for k, v in launches().items() if v}
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """A nested dict's leaves by their ``a/b/c`` paths."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def _same_trees(a, b) -> bool:
+    import torch
+
+    fa, fb = _flat(a), _flat(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+@contextlib.contextmanager
+def _recording_stages(into: list):
+    """The residual stream after every Mamba layer and attention block, in
+    call order (the encoder's blocks, then the decoder's), as fp32 host
+    copies: the stages a card-vs-CPU reading is traced through."""
+    from repro_torch.models import transformer as T
+
+    mamba, block = T._mamba_layer, T.attn_block_apply
+
+    def rec_mamba(*a, **k):
+        out = mamba(*a, **k)
+        into.append(out.float().cpu())
+        return out
+
+    def rec_block(*a, **k):
+        out = block(*a, **k)
+        into.append(out.float().cpu())
+        return out
+
+    T._mamba_layer, T.attn_block_apply = rec_mamba, rec_block
+    try:
+        yield into
+    finally:
+        T._mamba_layer, T.attn_block_apply = mamba, block
+
+
+def _stage_report(card: list, cpu: list) -> dict:
+    """Each stage card vs CPU (relative to the CPU's largest value); the
+    first stage where they differ, and the first whose difference is more
+    than twice the stage's before it (``first_jump``, as parity_step)."""
+    r = [_rel(a, b) for a, b in zip(card, cpu)]
+    return {"card_vs_cpu": r,
+            "first_differs": next((i for i, x in enumerate(r) if x > 0),
+                                  None),
+            "first_jump": next((i for i in range(1, len(r))
+                                if 0 < 2 * r[i - 1] < r[i]), None)}
+
+
+def _parity_line(name: str, cfg, readings: dict, stages: dict) -> dict:
+    """Emit a card-vs-CPU line; every reading within PARITY_REL_TOL."""
+    worst = max(readings.values())
+    line = {"phase": "parity_families", "model": name,
+            "layers": cfg.n_layers, "readings_rel": readings,
+            "max_rel_err": worst, "rel_tol": PARITY_REL_TOL,
+            "stages": _stage_report(stages["card"], stages["cpu"])}
+    emit(line)
+    require(worst <= PARITY_REL_TOL,
+            f"{name}: card vs CPU {worst} apart (first_jump at stage "
+            f"{line['stages']['first_jump']}): {readings}")
+    return line
+
+
+def _ssm_parity(cfg, dev, n_layers: int) -> dict:
+    """``cfg`` at full width cut to ``n_layers``, fp32, seeded random
+    weights made on the card and copied to the CPU: a forward's logits (B
+    = 2, S = 64), then 8 decode steps from zeroed states (each step's
+    logits) and the final states (the Mamba ``conv`` and ``ssm``, a
+    hybrid's rings), card vs CPU, each within PARITY_REL_TOL."""
+    import torch
+
+    from repro_torch import tree_to
+    from repro_torch.models import transformer as T
+
+    c = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    p_gpu = T.init_params(c, seed=3, device=dev)
+    sides = (("card", dev, p_gpu), ("cpu", torch.device("cpu"),
+                                    tree_to(p_gpu, "cpu")))
+    toks = torch.randint(0, c.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(5))
+    got, stages = {}, {}
+    for side, d, p in sides:
+        rec: list = []
+        with _recording_stages(rec):
+            lg, _ = T.forward(p, {"tokens": toks.to(d)}, c, train=False)
+        cache = T.init_decode_cache(c, 2, 16, device=d)
+        steps = [T.decode_step(p, toks[:, t].to(d), cache, c)[0][
+            :, :c.vocab].float().cpu() for t in range(8)]
+        got[side] = (lg[..., :c.vocab].float().cpu(), torch.stack(steps, 1),
+                     _flat(tree_to(cache, "cpu")))
+        stages[side] = rec
+    (f_a, d_a, s_a), (f_b, d_b, s_b) = got["card"], got["cpu"]
+    readings = {"forward_logits": _rel(f_a, f_b),
+                "decode_logits": _rel(d_a, d_b)}
+    for path, leaf in s_b.items():
+        if leaf.is_floating_point():
+            readings[f"state/{path}"] = _rel(s_a[path], leaf)
+        else:
+            require(torch.equal(s_a[path], leaf), f"{c.name}: {path}")
+    return _parity_line(c.name, c, readings, stages)
+
+
+def _phase_ssm(dev, arch: str, parity_layers: int) -> dict:
+    """Phase 3h (a, b): ``arch`` (mamba2-2.7b or zamba2-7b) at full width
+    and depth, seed-0 random fp32 weights cast to bf16 as the reference's
+    serve step casts them (``launch.steps._compute_cast``; its Mamba
+    stacks refuse bf16 activations over fp32 weights, their layer scan's
+    carry turning fp32: ``tests/test_torch_mamba.py``), through the
+    legacy ``ServeEngine``: the prompt token by token through the decode
+    graph (the Mamba states written in place), greedy and sampled
+    generates, launches a generate = an eager decode step's times its
+    steps, one host sync a generate, a replay ``torch.equal`` to an eager
+    ``decode_step``; a profiled decode window; a profiled forward at S =
+    512 (chunks of 256) with ``ssd_chunked``'s device ms; then card vs CPU
+    at ``parity_layers`` (:func:`_ssm_parity`)."""
+    import torch
+
+    from repro_torch import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import _compute_cast
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import GenerationConfig, ServeEngine
+
+    cfg = _on(get_config(arch))
+    params = _compute_cast(T.init_params(cfg, seed=0, device=dev), cfg)
+    B, S, n = SSM_BATCH, SSM_PROMPT, SSM_NEW
+    eng = ServeEngine(cfg, params, max_len=S + n, device=dev)
+    require(eng._prefill is None, f"{arch}: the prompt must run token by "
+            f"token")
+    prompts = torch.randint(0, cfg.vocab, (B, S),
+                            generator=torch.Generator().manual_seed(0))
+    runs = {"greedy": GenerationConfig(max_new_tokens=n),
+            "sampled": GenerationConfig(max_new_tokens=n,
+                                        temperature=SAMPLE_TEMPERATURE,
+                                        seed=0)}
+    eng.generate(prompts, runs["greedy"])     # captures the decode graph
+    g = eng._decode.graphs
+    ring = eng._rings[B]
+    require(g.captures == 1 and len(g.buckets) == 1,
+            f"{arch}: one decode graph: {g.buckets}")
+    # an eager decode step's launches, on a clone of the states
+    tok = prompts[:, 0].to(dev, torch.int32)
+    _sync(dev)
+    reset_launches()
+    T.decode_step(eng.params, tok, tree_map(torch.clone, ring), cfg)
+    _sync(dev)
+    per_step = _counted()
+    require(per_step.get("monarch_fused", 0) > 0,
+            f"{arch}: a decode step must run B1: {per_step}")
+    steps = S + n - 1
+    want = {k: v * steps for k, v in per_step.items()}
+    want["sample_tokens"] = n
+    out: dict = {"model": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+                 "params_dtype": "bfloat16 (the serve step's cast)",
+                 "B": B, "prompt": S, "new_tokens": n,
+                 "max_len": eng.max_len, "buckets": g.buckets,
+                 "launches_per_decode_step": per_step}
+    for name, gc in runs.items():
+        _sync(dev)
+        reset_launches()
+        replays = g.replays
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, gc)
+        dt = time.perf_counter() - t0
+        counts = _counted()
+        out[name] = {"seconds": dt, "tokens_per_s": B * n / dt,
+                     "decode_steps": steps, "ms_per_step": dt * 1e3 / steps,
+                     "launches": counts, "replays": g.replays - replays,
+                     "tokens": toks[:2].tolist()}
+        require(tuple(toks.shape) == (B, n) and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab,
+                f"{arch} {name}: tokens {tuple(toks.shape)} out of the vocab")
+        require(counts == want and g.replays - replays == steps,
+                f"{arch} {name}: launches {counts} (want {want}), replays "
+                f"{g.replays - replays} (want {steps})")
+        if name == "greedy":
+            greedy_toks = toks
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.generate(prompts, runs["sampled"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["host_syncs_per_generate"] = sum(
+        "called a synchronizing CUDA operation" in str(w.message)
+        for w in caught)
+    require(out["host_syncs_per_generate"] == 1,
+            f"{arch}: {out['host_syncs_per_generate']} host syncs a generate")
+    # the replay against an eager decode_step on a clone of the states
+    tok = greedy_toks[:, -1].to(dev)
+    c_eager = tree_map(torch.clone, ring)
+    lg_graph, _ = eng._decode(eng.params, tok, ring)
+    lg_eager, _ = T.decode_step(eng.params, tok, c_eager, cfg)
+    _sync(dev)
+    out["replay_vs_eager"] = {"logits": torch.equal(lg_graph, lg_eager),
+                              "states": _same_trees(ring, c_eager)}
+    require(all(out["replay_vs_eager"].values()),
+            f"{arch}: replay vs eager {out['replay_vs_eager']}")
+
+    def graph_step():
+        eng._decode(eng.params, tok, ring)
+
+    win = _ring_window(dev, graph_step, 8)
+    seen = win["kernels_per_step_profiled"]
+    require(seen["monarch_fused_kernel"] >= PROFILED_SHARE
+            * per_step.get("monarch_fused", 0)
+            and seen["bdmm_"] >= PROFILED_SHARE * per_step.get("bdmm", 0),
+            f"{arch}: the profiler shows {seen} a step, the counters "
+            f"{per_step}")
+    out["decode_graph"] = win
+    # the chunked forward at S = 512 (two chunks of 256), and ssd_chunked
+    # alone on the first layer's inputs
+    toks = torch.randint(0, cfg.vocab, (B, 512),
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    first: list = []
+    ssd = M.ssd_chunked
+
+    def capture(*a, **k):
+        if not first:
+            first.append((a, k))
+        return ssd(*a, **k)
+
+    M.ssd_chunked = capture
+    try:
+        fwd_ms = _device_ms(lambda: T.forward(eng.params, {"tokens": toks},
+                                              cfg, train=False), n=2)
+    finally:
+        M.ssd_chunked = ssd
+    a, k = first[0]
+    ssd_ms = _device_ms(lambda: ssd(*a, **k), n=5)
+    out["forward_S512"] = {
+        "B": B, "S": 512, "chunk": cfg.ssm.chunk, "device_ms": fwd_ms,
+        "ssd_chunked_ms_a_layer": ssd_ms,
+        "ssd_chunked_ms": ssd_ms * cfg.n_layers,
+        "ssd_chunked_share": ssd_ms * cfg.n_layers / fwd_ms}
+    emit({"phase": "serve_ssm", **out})
+    del eng, params, ring, c_eager
+    torch.cuda.empty_cache()
+    out["parity"] = _ssm_parity(cfg, dev, parity_layers)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _encdec_parity(cfg, dev) -> dict:
+    """seamless-m4t-large-v2 at full width cut to 2 + 2 layers, fp32:
+    ``_encode`` of 64 frames, ``make_prefill_step``'s logits on an 8-token
+    decoder prompt, then the prompt token by token through
+    ``make_decode_step(enc_out=...)`` (each step's logits) and the ring,
+    card vs CPU, each within PARITY_REL_TOL."""
+    import torch
+
+    from repro_torch import tree_to
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+
+    c = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2,
+                            dtype="float32")
+    p_gpu = T.init_params(c, seed=3, device=dev)
+    gen = torch.Generator().manual_seed(6)
+    frames = torch.randn((2, 64, c.d_model), generator=gen)
+    toks = torch.randint(0, c.vocab, (2, 8), generator=gen)
+    got, stages = {}, {}
+    for side, d, p in (("card", dev, p_gpu),
+                       ("cpu", torch.device("cpu"), tree_to(p_gpu, "cpu"))):
+        batch = {"tokens": toks.to(d), "enc_embeds": frames.to(d)}
+        rec: list = []
+        with _recording_stages(rec):
+            enc = T._encode(p, batch, c)
+            pre = make_prefill_step(c)(p, batch)
+        cache = T.init_decode_cache(c, 2, 16, device=d)
+        step = make_decode_step(c)
+        steps = [step(p, toks[:, t].to(d), cache, enc)[0][:, :c.vocab]
+                 .float().cpu() for t in range(toks.shape[1])]
+        got[side] = (enc.float().cpu(), pre[:, :c.vocab].float().cpu(),
+                     torch.stack(steps, 1), _flat(tree_to(cache, "cpu")))
+        stages[side] = rec
+    a, b = got["card"], got["cpu"]
+    readings = {"enc_out": _rel(a[0], b[0]), "prefill_logits": _rel(a[1],
+                                                                    b[1]),
+                "decode_logits": _rel(a[2], b[2])}
+    for path, leaf in b[3].items():
+        if leaf.is_floating_point():
+            readings[f"ring/{path}"] = _rel(a[3][path], leaf)
+    return _parity_line(c.name, c, readings, stages)
+
+
+def _phase_encdec(dev) -> dict:
+    """Phase 3h (c): seamless-m4t-large-v2 at full width (24 + 24 layers,
+    vocab 256206, seed-0 fp32 weights, bf16 steps): ``enc_out`` from
+    ``_encode`` on ENC_BATCH x n_frontend_tokens frames (the stubbed
+    audio frontend); ``make_prefill_step``'s logits on an ENC_PROMPT-token
+    decoder prompt; the same prompt token by token through
+    ``make_decode_step(enc_out=...)`` into a ring (its last logits against
+    the prefill's: a reading, bf16) and ENC_NEW greedy tokens drawn by X3
+    (V = 256256); a decode
+    step's device ms and the cross-attention K/V projections' share (B1
+    over every frame in each of the 24 layers, recomputed at every step
+    as in the reference); then card vs CPU at 2 + 2 layers
+    (:func:`_encdec_parity`)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.linear import linear_apply
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.sample import sample_block
+    from repro_torch.launch.steps import (_compute_cast, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import transformer as T
+
+    cfg = _on(get_config("seamless-m4t-large-v2"))
+    params = T.init_params(cfg, seed=0, device=dev)
+    B, F_, S, n = ENC_BATCH, cfg.n_frontend_tokens, ENC_PROMPT, ENC_NEW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    frames = torch.randn((B, F_, cfg.d_model), generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, S),
+                            generator=torch.Generator().manual_seed(1)).to(
+        dev)
+    batch = {"tokens": prompts, "enc_embeds": frames}
+    out: dict = {"model": cfg.name, "dtype": cfg.dtype,
+                 "layers": [cfg.n_enc_layers, cfg.n_layers], "B": B,
+                 "frames": F_, "prompt": S, "new_tokens": n}
+    _sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    enc_out = T._encode(_compute_cast(params, cfg), batch, cfg)
+    _sync(dev)
+    out["encode"] = {"seconds": time.perf_counter() - t0,
+                     "launches": _counted()}
+    require(tuple(enc_out.shape) == (B, F_, cfg.d_model)
+            and bool(torch.isfinite(enc_out).all()),
+            f"seamless: enc_out {tuple(enc_out.shape)}")
+    reset_launches()
+    t0 = time.perf_counter()
+    pre = make_prefill_step(cfg)(params, batch)
+    _sync(dev)
+    out["prefill"] = {"seconds": time.perf_counter() - t0,
+                      "launches": _counted()}
+    step = make_decode_step(cfg)
+    cache = T.init_decode_cache(cfg, B, S + n + 16, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    for t in range(S):
+        lg, _ = step(params, prompts[:, t].contiguous(), cache, enc_out)
+    _sync(dev)
+    out["prompt_by_token"] = {"seconds": time.perf_counter() - t0,
+                              "launches": _counted(),
+                              "last_logits_vs_prefill_rel": _rel(
+                                  lg[:, :cfg.vocab].float(),
+                                  pre[:, :cfg.vocab].float())}
+    # the new tokens drawn by X3 (greedy, its block draw as the
+    # ServeEngine draws them) over the padded vocabulary of 256256
+    temps = torch.zeros(B, device=dev)
+    key = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    toks = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n):
+        tok = sample_block(lg, temps, key, False)
+        toks.append(tok)
+        if i < n - 1:
+            lg, _ = step(params, tok, cache, enc_out)
+    toks = torch.stack(toks, 1).cpu()
+    out["greedy"] = {"seconds": time.perf_counter() - t0,
+                     "launches": _counted(), "vocab_padded": lg.shape[-1],
+                     "tokens": toks[:2].tolist()}
+    require(bool(torch.isfinite(pre).all()) and int(toks.max()) < cfg.vocab
+            and out["prompt_by_token"]["launches"].get("monarch_fused", 0)
+            > 0 and out["greedy"]["launches"].get("sample_tokens") == n,
+            f"seamless: {out['prompt_by_token']}, {out['greedy']}")
+    # a decode step, and the cross-attention's K and V projections alone
+    cast = _compute_cast(params, cfg)
+    xattn = [T.layer_params(cast["decoder"]["layers"], i)["xattn"]
+             for i in range(cfg.n_layers)]
+
+    def cross_kv():
+        for p in xattn:
+            for name in ("wk", "wv"):
+                linear_apply(p[name], enc_out, backend="pallas")
+
+    step_ms = _device_ms(lambda: step(params, tok, cache, enc_out), n=3)
+    kv_ms = _device_ms(cross_kv, n=3)
+    out["decode_step"] = {"device_ms": step_ms, "cross_kv_device_ms": kv_ms,
+                          "cross_kv_share": kv_ms / step_ms,
+                          "cross_kv_rows": B * F_}
+    emit({"phase": "serve_encdec", **out})
+    del params, cast, xattn, enc_out, cache
+    torch.cuda.empty_cache()
+    out["parity"] = _encdec_parity(cfg, dev)
+    return out
+
+
+def _phase_vlm(dev) -> dict:
+    """Phase 3h (d): internvl2-76b at full width and depth (80 layers, d
+    8192, GQA 64 / 8, hd 128, vocab 128256; seed-0 fp32 weights, bf16
+    activations): a prefill with its n_frontend_tokens patch embeddings
+    (the stubbed vision frontend) before VLM_TEXT text tokens a row; the
+    continuous-batching engine's text serve (B1, B2 staged, B3, X3) with
+    its replays ``torch.equal`` to eager steps and a profiled window; then
+    card vs CPU at 2 layers (:func:`_moe_parity`, which needs no MoE)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import transformer as T
+
+    cfg = _on(get_config("internvl2-76b"))
+    params = T.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B = 2
+    patches = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                          generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (B, VLM_TEXT),
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    batch = {"tokens": toks, "patch_embeds": patches}
+    T.prefill(params, batch, cfg)
+    _sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    lg = T.prefill(params, batch, cfg)
+    _sync(dev)
+    pre = {"B": B, "patches": cfg.n_frontend_tokens, "text": VLM_TEXT,
+           "seconds": time.perf_counter() - t0, "launches": _counted(),
+           "device_ms": _device_ms(lambda: T.prefill(params, batch, cfg),
+                                   n=2)}
+    require(tuple(lg.shape) == (B, cfg.vocab_padded)
+            and bool(torch.isfinite(lg[:, :cfg.vocab]).all())
+            and pre["launches"].get("bdmm", 0) > 0,
+            f"internvl2 prefill: {pre}")
+    eng, reqs, counts, dt, n_out, prompt_toks = _serve(
+        cfg, params, 8, 32, 256, 32, seed=0)
+    line = {"phase": "serve_vlm", "model": cfg.name, "dtype": cfg.dtype,
+            "layers": cfg.n_layers,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+            "prefill_patch_embeds": pre, "requests": len(reqs),
+            "prompt_tokens": prompt_toks, "new_tokens": n_out,
+            "seconds": dt, "tokens_per_s": n_out / dt,
+            "steps": eng.stats["mixed_steps"],
+            "dense_fallbacks": eng.stats["dense_fallbacks"],
+            "launches": counts,
+            "graphs": _graphs_replayed(eng, "internvl2 serve")}
+    emit(line)
+    require(counts["bdmm"] > 0 and counts["paged_attention_span"] > 0
+            and counts["sample_tokens"] > 0
+            and eng.stats["dense_fallbacks"] == 0,
+            f"internvl2-76b must run B2, B3 and X3: {counts}")
+    del eng
+    line["profile"] = _profile_serve(cfg, params)
+    emit({"phase": "serve_profile_vlm", "model": cfg.name,
+          **line["profile"]})
+    del params
+    torch.cuda.empty_cache()
+    line["parity"] = _moe_parity(cfg, dev)
+    torch.cuda.empty_cache()
+    return line
+
+
+def _sink_determinism(dev) -> list:
+    """ROADMAP §C 4 on the card: qwen2-moe-a2.7b with the dense attention
+    (``paged_kernel=False``), at ``.reduced()`` (fp32) and at full width
+    cut to 2 layers (bf16): one mixed step whose padding positions (short
+    spans, an empty row, table entries past the span at the sink) collide
+    on the sink page, run twice on fresh pools: the logits, every page
+    (the sink's included) and every layer's routes ``torch.equal``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    full = get_config("qwen2-moe-a2.7b")
+    out = []
+    for name, c in (("reduced", full.reduced()),
+                    ("full width, 2 layers", dataclasses.replace(
+                        full, n_layers=2))):
+        c = dataclasses.replace(_on(c), paged_kernel=False)
+        params = T.init_params(c, seed=0, device=dev)
+        B, S, pg = 8, 64, 16
+        rng = np.random.default_rng(13)
+        toks = torch.from_numpy(rng.integers(0, c.vocab, (B, S)).astype(
+            np.int32)).to(dev)
+        spans = torch.tensor([64, 40, 17, 1, 0, 9, 0, 33],
+                             dtype=torch.int32, device=dev)
+        table = torch.zeros((B, S // pg), dtype=torch.int32, device=dev)
+        for b, sp in enumerate(spans.tolist()):
+            for j in range(-(-sp // pg)):
+                table[b, j] = 1 + b * (S // pg) + j
+        runs = []
+        for _ in range(2):
+            pool = T.init_paged_pool(c, 1 + B * (S // pg), pg, device=dev)
+            routes: list = []
+            with _recording_routes(routes):
+                lg, _ = T.paged_mixed_step(
+                    params, toks, torch.zeros(B, dtype=torch.int32,
+                                              device=dev),
+                    spans, table, pool, c)
+            runs.append((lg.clone(), pool, routes))
+        (l0, p0, r0), (l1, p1, r1) = runs
+        same = {"logits": torch.equal(l0, l1), "pages": _same_trees(p0, p1),
+                "routes": len(r0) == len(r1) and all(
+                    torch.equal(a["idx"], b["idx"])
+                    and torch.equal(a["kept"], b["kept"])
+                    for a, b in zip(r0, r1))}
+        line = {"phase": "sink_determinism", "model": c.name, "cut": name,
+                "dtype": c.dtype, "padding_writes": int(
+                    (B * S - spans.sum()).item()), "equal": same}
+        emit(line)
+        require(all(same.values()), f"§C 4: two runs of a dense MoE step "
+                f"differ: {line}")
+        out.append(line)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase_families(dev) -> None:
+    """Phase 3h: the four configs of the Mamba2, hybrid, encoder-decoder
+    and vision families, then the sink writes' determinism (§C 4) and the
+    serve_decode example at ``--arch mamba2-2_7b``."""
+    import torch
+
+    _phase_ssm(dev, "mamba2-2.7b", parity_layers=2)
+    # zamba2-7b card vs CPU at its .reduced() depth: one group and a tail
+    from repro_torch.configs import get_config
+    _phase_ssm(dev, "zamba2-7b",
+               parity_layers=get_config("zamba2-7b").shared_attn_every + 1)
+    _phase_encdec(dev)
+    _phase_vlm(dev)
+    _sink_determinism(dev)
+    torch.cuda.empty_cache()
+    _example_runs(dev, variants=(["--arch", "mamba2-2_7b"],))
 
 
 def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
@@ -2669,7 +3320,9 @@ def main() -> int:
 
     bdmm_lines: dict = {}
     bdmm_sets: dict = {}
-    for name, (proj, nblocks, fused) in BDMM_CALL_SETS.items():
+    families_only = "--families" in sys.argv[1:]
+    for name, (proj, nblocks, fused) in (
+            {} if families_only else BDMM_CALL_SETS).items():
         fs = [init_monarch(gb, make_dims(din, dout, policy="paper",
                                          nblocks=nblocks), device=dev)
               for din, dout in proj]
@@ -2699,6 +3352,64 @@ def main() -> int:
         emit({"phase": "serve_profile_staged_quantized", "options": qopts,
               **_profile_serve(cfg_st, params, watch=("bdmm",), **qopts)})
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        return 0
+
+    # -- 2n. B1 and B2 at the shapes phase 3h's configs give them: odd
+    # block widths (mamba2's in_proj, s 661: B1; zamba2's, s 911: B2),
+    # blocks that are no power of two (the out_proj pairs at k = q = 80 and
+    # 112: B1; zamba2's w2 at p 112: B2), internvl2's staged pairs (128
+    # blocks: wq; w2 at k 224, q 256), each against its plain version at T
+    # = 8 and 512, bf16 and fp32 x (B1 also bf16 x on bf16 factors, as the
+    # Mamba serves' cast steps run it) ----------------------------------------
+    for name, (din, dout) in FAMILY_FUSED.items():
+        dims = make_dims(din, dout, policy="paper")
+        require(fused_fits(dims.l_shape, dims.r_shape),
+                f"{name} must take the fused branch")
+        f32 = init_monarch(gb, dims, device=dev)
+        for fdt in (torch.float32, torch.bfloat16):
+            L, R = f32["L"].to(fdt), f32["R"].to(fdt)
+            n_par = L.numel() + R.numel()
+            W = monarch_to_dense(f32["L"], f32["R"])
+            for T_ in (8, 512):
+                for xdt in ((torch.float32, torch.bfloat16)
+                            if fdt == torch.float32 else (torch.bfloat16,)):
+                    dn = dn_of(xdt)
+                    x = randn(T_, din, dtype=xdt)
+                    err, ok = close(monarch_fused(x, L, R),
+                                    monarch_fused_plain(x, L, R), dn)
+                    errs["monarch_fused"] = max(errs["monarch_fused"], err)
+                    Wx = W.to(xdt)
+                    bms, by = bound_ms(T_ * (din + dout) * x.element_size()
+                                       + n_par * L.element_size(),
+                                       2 * T_ * n_par,
+                                       all_bf16=fdt == xdt == torch.bfloat16)
+                    emit({"phase": "kernel", "kernel": "monarch_fused",
+                          "shape": name, "dims": [din, dout],
+                          "blocks": [dims.k, dims.q, dims.p, dims.s],
+                          "T": T_, "x_dtype": dn, "factor_dtype": dn_of(fdt),
+                          "max_abs_err": err, "tol": TOL[dn],
+                          **launch_shape(L.shape, R.shape, x,
+                                         16 if fdt == torch.bfloat16 else 32),
+                          **timings(kernel=lambda: monarch_fused(x, L, R),
+                                    plain=lambda: monarch_fused_plain(
+                                        x, L, R),
+                                    library=lambda: torch.matmul(x, Wx)),
+                          "bound_ms": bms, "bound_by": by})
+                    require(ok, f"monarch_fused {name} T={T_} x {dn} "
+                            f"factors {dn_of(fdt)}: err {err}")
+    for name, proj in FAMILY_STAGED.items():
+        fs = [init_monarch(gb, make_dims(din, dout, policy="paper"),
+                           device=dev) for din, dout in proj]
+        require(not any(fused_fits(f["L"].shape, f["R"].shape) for f in fs),
+                f"{name} must take the staged branch")
+        for T_ in (8, 512):
+            for xdt in (torch.bfloat16, torch.float32):
+                bdmm_call_set(name, T_, 32, fs, xdt)
+    if families_only:
+        # the four configs' phase alone, after their call sets
+        _phase_families(dev)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "card": _card_line()})
         return 0
 
     # -- 2a. monarch_fused at gpt2-medium's three Monarch shapes -------------
@@ -3193,22 +3904,6 @@ def main() -> int:
     def run_layer(fn, fs, xs):
         return lambda: [fn(x, f) for x, f in zip(xs, fs)]
 
-    def device_ms(fn, n: int = 10) -> float:
-        """Device kernel time of one ``fn()`` from torch.profiler: what the
-        card spends, without the host's time to issue the launches."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return sum((getattr(e, "self_device_time_total", None)
-                    or e.self_cuda_time_total) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / n
-
     summary = {}
     fs = layer_factors(None)
     dense = [monarch_to_dense(f["L"], f["R"]).to(bf16) for f in fs]
@@ -3222,7 +3917,7 @@ def main() -> int:
                 x, f["L"], f["R"]), fs, xs),
             library=run_layer(torch.matmul, dense, xs))
         summary[key] = {**summary_entry(t, *layer_bound(fs, False, T_=T_)),
-                        "device_ms": device_ms(kern), "T": T_,
+                        "device_ms": _device_ms(kern), "T": T_,
                         "grid": [fused_geometry(f["L"].shape, f["R"].shape,
                                                 T_, 2, 32).grid
                                  for f in fs]}
@@ -3271,7 +3966,7 @@ def main() -> int:
         summary[key] = {
             **summary_entry(t, *layer_bound(fs, False, weight_bytes=1,
                                             T_=T_)),
-            "device_ms": device_ms(kern), "T": T_,
+            "device_ms": _device_ms(kern), "T": T_,
             "grid": [fused_geometry(f["L"].shape, f["R"].shape, T_, 2,
                                     8).grid for f in fs]}
 
@@ -3426,7 +4121,7 @@ def main() -> int:
             torch.bmm(x, W) for x, W in zip(xs_e, Ws)])
         summary[key] = {
             **summary_entry(t, *stack_bound(fs, 1 if bits else 4, rows)),
-            "device_ms": device_ms(kern), "T": rows, "experts": E,
+            "device_ms": _device_ms(kern), "T": rows, "experts": E,
             "grid": [fused_geometry(f["L"].shape[1:], f["R"].shape[1:],
                                     rows, 2, bits or 32).grid * E
                      for f in fs]}
@@ -3475,7 +4170,7 @@ def main() -> int:
             require(ok, f"monarch_geometry {name} {variant}: err {err}")
             line[variant] = {"grid": args[9], "slab": args[7],
                              "smem_bytes": args[11],
-                             "device_ms": device_ms(launch, 20),
+                             "device_ms": _device_ms(launch, 20),
                              "max_abs_err": err}
         emit(line)
 
@@ -3858,20 +4553,6 @@ def main() -> int:
                     f"{what} {wname} window: quantize_kv_write ran {n} "
                     f"times a step, not {2 * n_layers}")
 
-    def graphs_replayed(eng, what: str, compare: bool = True) -> dict:
-        """Every step of a tp = 1 serve on the card replays a captured
-        graph but each bucket's first; with ``compare``, each bucket's
-        replay is the eager step (:func:`_replay_vs_eager`)."""
-        stats = _graph_stats(eng)
-        require(stats is not None and stats["replays"] > 0
-                and stats["captures"] == len(stats["buckets"])
-                and stats["captures"] + stats["replays"]
-                == eng.stats["mixed_steps"],
-                f"{what}: every step but a bucket's first must replay its "
-                f"graph: {stats}")
-        if compare:
-            stats["replay_vs_eager"] = _replay_vs_eager(eng)
-        return stats
     cfg = dataclasses.replace(gpt2, monarch=dataclasses.replace(
         gpt2.monarch, backend="pallas"))
     params = T.init_params(cfg, seed=0, device=dev)
@@ -3897,7 +4578,7 @@ def main() -> int:
           **{k: fp_serve[k] for k in ("kv_dtype", "pool_pages", "pool_bytes",
                                       "decode_weight_bytes",
                                       "decoder_weight_bytes")},
-          "graphs": graphs_replayed(eng, "serve")})
+          "graphs": _graphs_replayed(eng, "serve")})
     require(counts["monarch_fused"] > 0, "serve launched no monarch_fused")
     require(counts["paged_attention_span"] > 0,
             "serve launched no paged_attention_span")
@@ -3957,7 +4638,7 @@ def main() -> int:
           "steps": st_["mixed_steps"],
           "kernel_dispatches": st_["kernel_dispatches"],
           "dense_fallbacks": st_["dense_fallbacks"], "launches": counts,
-          "graphs": graphs_replayed(eng, "quantized serve")})
+          "graphs": _graphs_replayed(eng, "quantized serve")})
     require(counts["monarch_fused_q"] > 0
             and counts["paged_attention_span_q"] > 0,
             "the quantized serve launched no monarch_fused_q or int8 span "
@@ -4015,7 +4696,7 @@ def main() -> int:
           "steps": eng.stats["mixed_steps"],
           "dense_fallbacks": eng.stats["dense_fallbacks"],
           "launches": counts,
-          "graphs": graphs_replayed(eng, "int4 serve", compare=False)})
+          "graphs": _graphs_replayed(eng, "int4 serve", compare=False)})
     require(counts["monarch_fused_q"] > 0 and counts["monarch_fused"] == 0
             and counts["paged_attention_span_q"] > 0
             and eng.stats["dense_fallbacks"] == 0,
@@ -4033,7 +4714,7 @@ def main() -> int:
           "tokens_per_s": out / dt, "steps": eng.stats["mixed_steps"],
           "dense_fallbacks": eng.stats["dense_fallbacks"],
           "launches": counts,
-          "graphs": graphs_replayed(eng, "staged serve", compare=False)})
+          "graphs": _graphs_replayed(eng, "staged serve", compare=False)})
     require(counts["bdmm"] > 0 and counts["monarch_fused"] == 0,
             "the nblocks=128 serve must take the staged bdmm branch only")
     require(counts["paged_attention_span"] > 0,
@@ -4050,7 +4731,7 @@ def main() -> int:
           "tokens_per_s": out / dt, "steps": eng.stats["mixed_steps"],
           "dense_fallbacks": eng.stats["dense_fallbacks"],
           "launches": counts,
-          "graphs": graphs_replayed(eng, "staged int8 serve",
+          "graphs": _graphs_replayed(eng, "staged int8 serve",
                                     compare=False)})
     require(counts["bdmm_q"] > 0 and counts["monarch_fused_q"] == 0
             and counts["monarch_fused"] == 0 and counts["bdmm"] == 0,
@@ -4160,7 +4841,7 @@ def main() -> int:
           "decoder_weight_bytes": decode_weight_bytes(
               eng.params["decoder"]),
           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-          "graphs": graphs_replayed(eng, "nemotron serve")})
+          "graphs": _graphs_replayed(eng, "nemotron serve")})
     require(counts["monarch_fused"] > 0 and counts["bdmm"] > 0
             and counts["paged_attention_span"] > 0
             and counts["sample_tokens"] > 0,
@@ -4191,7 +4872,7 @@ def main() -> int:
           "decoder_weight_bytes": decode_weight_bytes(
               eng.params["decoder"]),
           "launches": counts,
-          "graphs": graphs_replayed(eng, "nemotron int8 serve")})
+          "graphs": _graphs_replayed(eng, "nemotron int8 serve")})
     require("wkv" in attn_keys and "wq" in attn_keys
             and "wqkv" not in attn_keys,
             f"GQA fuses K and V only: {attn_keys}")
@@ -4379,7 +5060,7 @@ def main() -> int:
     emit({"phase": "serve_d2s", "model": "gpt2-medium:dense D2S",
           "dtype": cfg_dc.dtype, "requests": 8, "new_tokens": 8 * 32,
           **plain, "dense_fallbacks": eng.stats["dense_fallbacks"],
-          "launches": counts, "graphs": graphs_replayed(eng, "d2s serve"),
+          "launches": counts, "graphs": _graphs_replayed(eng, "d2s serve"),
           "calibration_hbm": cal_conv})
     require(counts["monarch_fused"] > 0 and counts["paged_attention_span"] > 0
             and counts["sample_tokens"] > 0
@@ -4519,9 +5200,16 @@ def main() -> int:
     # granite-moe-1b-a400m at full width and depth (the experts' B1/B4 one
     # launch a projection), gemma2-27b at full width and depth, each card
     # vs CPU at 2 layers --------------------------------------------------
-    _phase_moe(dev, graphs_replayed, serve_counts)
+    _phase_moe(dev, serve_counts)
     torch.cuda.empty_cache()
     phase_done("3g mixture of experts and sandwich norms")
+
+    # -- 3h. the Mamba2 and Zamba2 hybrid stacks through the legacy
+    # ServeEngine, the encoder-decoder's serving steps, the vision
+    # frontend's prefill and text serve, each card vs CPU; the sink
+    # writes' determinism (§C 4); the serve_decode example at mamba2 ----
+    _phase_families(dev)
+    phase_done("3h Mamba2, hybrid, encoder-decoder and vision")
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -5451,11 +6139,7 @@ def main() -> int:
                if name in VMAPPED else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,13 +2,12 @@
 
 Variants are selected with a suffix, as in ``repro.configs``:
 ``name`` -> Monarch-sparse (paper policy), ``name:dense`` -> dense
-baseline, ``name:mxu`` -> Monarch with 128-aligned blocks.  Ported are
-the architectures whose layers the port has (attention stacks: LayerNorm
-or RMSNorm, GELU, GeGLU, SwiGLU or squared-ReLU FFNs, MHA or GQA, RoPE,
-local/global windows, logit softcaps, sandwich norms, mixture-of-experts
-FFNs, tied or untied embeddings); the others (encoder-decoder, Mamba2 and
-hybrid stacks, modality frontends) come with the model families they
-need.
+baseline, ``name:mxu`` -> Monarch with 128-aligned blocks.  Every architecture of
+the reference is ported: attention stacks (LayerNorm or RMSNorm, GELU,
+GeGLU, SwiGLU or squared-ReLU FFNs, MHA or GQA, RoPE, local/global
+windows, logit softcaps, sandwich norms, mixture-of-experts FFNs, tied or
+untied embeddings), Mamba2 and Zamba2 hybrid stacks, the encoder-decoder
+and the stubbed audio and vision frontends.
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ from repro_torch.models.config import ModelConfig
 
 PORTED_ARCHS = ["gpt2-medium", "bert-large-lm", "codeqwen1.5-7b",
                 "minicpm-2b", "nemotron-4-15b", "gemma2-27b",
-                "granite-moe-1b-a400m", "qwen2-moe-a2.7b"]
+                "granite-moe-1b-a400m", "qwen2-moe-a2.7b", "mamba2-2.7b",
+                "zamba2-7b", "seamless-m4t-large-v2", "internvl2-76b"]
 
 
 def _module_name(arch: str) -> str:
@@ -34,9 +34,6 @@ def get_config(name: str) -> ModelConfig:
     else:
         base, variant = name, "paper"
     base = base.replace(".", "_")
-    if _module_name(base) not in {_module_name(a) for a in PORTED_ARCHS}:
-        raise NotImplementedError(
-            f"arch {base!r} is not ported yet (ported: {PORTED_ARCHS})")
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(base)}")
     cfg: ModelConfig = mod.CONFIG
     if variant == "dense":

@@ -3,7 +3,11 @@
 ``params_from_numpy`` takes the reference's params as a nested dict of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and returns
 the port's params: the same keys, the same layout (stacked leading layer
-axis included) and the same dtypes, as tensors on ``device``.  It needs no
+axis included) and the same dtypes, as tensors on ``device``.  It walks
+any nested dict, so every family's tree crosses as it is: an
+encoder-decoder's ``encoder`` / ``ln_enc`` and ``xattn``, a hybrid's
+``groups`` / ``shared_attn`` / ``tail``, a Mamba layer's ``conv_w``,
+``conv_b``, ``A_log``, ``D``, ``dt_bias`` and ``norm_scale``.  It needs no
 JAX, so a checkpoint saved as numpy arrays loads on a machine without it.
 """
 

@@ -15,7 +15,9 @@ off); ``--kv-dtype int8`` serves quantized KV pages; ``--quantize`` and
 ``--fuse`` prepare the decode fast path at load; ``--deadline-s`` bounds
 every request's lifetime; ``--metrics`` prints the telemetry report and
 ``--trace-out PATH`` saves a Chrome trace of the engine's iterations.
-``--engine legacy`` serves one batch through ``ServeEngine``.
+``--engine legacy`` serves one batch through ``ServeEngine``, as every
+Mamba or hybrid model (``--arch mamba2-2_7b``, ``zamba2-7b``) is served:
+the continuous-batching engine needs an attention stack.
 
 The model is the ``.reduced()`` config of ``--arch`` with seeded random
 weights (``init_params``, seed 0), its Monarch projections through the
@@ -23,7 +25,7 @@ hand-written kernel (B1/B2, or B4/B5 on quantized factors; their plain
 versions on the CPU); the prompts come from a seeded torch generator.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_decode \\
-          [--engine legacy] [--device cpu]
+          [--engine legacy] [--arch mamba2-2_7b] [--device cpu]
 """
 
 from __future__ import annotations
@@ -103,7 +105,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     gen = torch.Generator().manual_seed(1)
     reset_launches()
 
-    if args.engine == "legacy":
+    if args.engine == "legacy" or cfg.layer_kind != "attn":
+        if cfg.layer_kind != "attn" and args.engine == "continuous":
+            print(f"({cfg.layer_kind} stack: falling back to ServeEngine)")
         engine = ServeEngine(cfg, params, max_len=64, device=dev)
         if args.quantize or args.fuse:
             from repro_torch.core.quant import BITS_BY_NAME

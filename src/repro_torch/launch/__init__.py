@@ -1,1 +1,2 @@
-"""Process-level launch of the port: the tensor-parallel mesh."""
+"""Process-level launch of the port: the tensor-parallel mesh and the
+serving steps."""

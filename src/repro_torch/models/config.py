@@ -8,9 +8,7 @@ encoder-decoder (Seamless/BART), and modality-stub backbones (audio/vision).
 parameterized matmul above ``monarch.min_dim`` is Monarch-factorized.
 
 Copied from ``repro.models.config`` so a configuration means the same in
-both packages; the port's model code serves attention stacks (dense or
-mixture-of-experts FFNs, sandwich norms) only so far and raises
-``NotImplementedError`` on the other families.
+both packages; the port's model code serves every family it describes.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ concatenate along the output axis.  Negative dims make the same transform
 work on layer-stacked parameter trees.
 
 GQA stacks (n_heads != n_kv_heads) have differently shaped Q vs K/V
-factors; there K and V fuse into ``wkv`` and Q stays separate.
+factors; there K and V fuse into ``wkv`` and Q stays separate, as they do
+in a cross-attention block (``xattn``: its q reads another stream).  A
+Mamba layer (``in_proj`` / ``out_proj``) has nothing to fuse and passes
+through unchanged.
 Quantization composes: fuse first, then ``core.quant.quantize_tree``.
 """
 

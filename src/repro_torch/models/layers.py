@@ -11,8 +11,12 @@ variance, RMSNorm scales by ``1 + scale``, and RoPE angles are fp32.
 
 Page writes are IN PLACE: the reference's functional ``.at[].set`` under a
 donated pool becomes an indexed assignment into the pool's tensors.
-Padding and shared-prefix positions all land on the sink page 0, where
-duplicate writes race harmlessly (the sink is never read unmasked).  An
+Padding and shared-prefix positions all land on the sink page 0.  The
+span kernel never reads it unmasked, so there its colliding writes race
+harmlessly; the dense gather's padding queries do read it, so on that
+path colliding writes all carry the value of the last of them in
+row-major order, the one ``.at[].set`` keeps (``last_writes``), and the
+sink holds the same rows on the card as on the CPU.  An
 int8 pool (``kv_dtype="int8"``) carries (P, KV) fp32 ``k_scales`` /
 ``v_scales`` beside its pages; fresh rows are quantized into it in place by
 ``kernels.kv_write.quantize_kv_write`` (its CUDA kernel on the card,
@@ -41,7 +45,9 @@ kernel backend, one expert-batched launch a projection
 dispatch/combine einsums stay plain PyTorch, as the reference runs them
 outside any kernel.
 
-Cross-attention is not ported yet and raises ``NotImplementedError``.
+Cross-attention (``attention_apply(kv_input=...)``, the encoder-decoder
+models' ``xattn``) is the reference's: q from the decoder stream, K and V
+from the encoder's output, no RoPE, every key visible, no cache.
 """
 
 from __future__ import annotations
@@ -241,7 +247,11 @@ def attention_apply(
     "v_pages": ...} addressed through ``page_table`` (B, max_pages), with
     S >= 1 new tokens per row written at ``pos[b] + arange(S)`` (in place,
     either cache).  ``span_len`` and ``write_start`` are as in
-    ``repro.models.layers.attention_apply``.  Returns (out, cache).
+    ``repro.models.layers.attention_apply``.  With ``kv_input`` (B, Skv,
+    d) it is cross-attention: q from ``x``, K and V from ``kv_input``
+    (a fused ``wkv`` too), no RoPE, every key visible, no cache.
+    ``bidir`` (the encoder): no RoPE, every key visible.  Returns (out,
+    cache).
 
     Under tensor parallelism (``plan``, a ``sharding.params.TPPlan``) the
     weights are this rank's slices: where the plan splits heads,
@@ -250,8 +260,10 @@ def attention_apply(
     fused ``wqkv`` / ``wkv`` holds each part's slice side by side), the
     attention runs on those heads, and ``wo`` is row-parallel over them
     (one all-reduce)."""
-    if kv_input is not None:
-        raise NotImplementedError("cross-attention is not ported yet")
+    cross = kv_input is not None
+    if cross and (cache is not None or plan is not None):
+        raise ValueError("cross-attention reads enc_out: no cache and no "
+                         "tensor parallelism")
     ring = cache is not None and "k_pages" not in cache
     if ring and plan is not None:
         raise ValueError("the ring KV cache serves one device: tensor "
@@ -259,12 +271,16 @@ def attention_apply(
     B, S, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dtype = x.dtype
+    kv_src = kv_input if cross else x
+    Skv = kv_src.shape[1]
 
     if plan is not None and plan.heads:     # this rank's heads
         h //= plan.tp
     if plan is not None and plan.kv_heads:
         kv //= plan.tp
     if "wqkv" in params:     # [q | k | v], each part this rank's slice
+        if cross:
+            raise ValueError("fused QKV is self-attention only")
         qd, kd = h * hd, kv * hd
         qkv = linear_apply(params["wqkv"], x, backend=backend)
         q = qkv[..., :qd].reshape(B, S, h, hd)
@@ -272,22 +288,23 @@ def attention_apply(
         v = qkv[..., qd + kd:].reshape(B, S, kv, hd)
     elif "wkv" in params:
         q = linear_apply(params["wq"], x, backend=backend).reshape(B, S, h, hd)
-        kvh = linear_apply(params["wkv"], x, backend=backend)
-        k = kvh[..., :kv * hd].reshape(B, S, kv, hd)
-        v = kvh[..., kv * hd:].reshape(B, S, kv, hd)
+        kvh = linear_apply(params["wkv"], kv_src, backend=backend)
+        k = kvh[..., :kv * hd].reshape(B, Skv, kv, hd)
+        v = kvh[..., kv * hd:].reshape(B, Skv, kv, hd)
     else:
-        def proj(name, heads):
-            y = linear_apply(params[name], x, backend=backend)
-            return y.reshape(B, S, heads, hd)
+        def proj(name, src, heads):
+            y = linear_apply(params[name], src, backend=backend)
+            return y.reshape(B, src.shape[1], heads, hd)
 
-        q, k, v = proj("wq", h), proj("wk", kv), proj("wv", kv)
+        q, k, v = (proj("wq", x, h), proj("wk", kv_src, kv),
+                   proj("wv", kv_src, kv))
 
     if pos is None:
         q_pos = torch.arange(S, device=x.device)
     else:  # cached: per-row start position, S consecutive new tokens
         q_pos = (pos.reshape(B, 1).long()
                  + torch.arange(S, device=x.device)[None])
-    if not bidir:
+    if not bidir and not cross:
         q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, q_pos, cfg.rope_theta)
     if cfg.qk_norm:
@@ -302,13 +319,13 @@ def attention_apply(
         out, new_cache = _paged_attend(
             q, k, v, cache, page_table, q_pos, cfg, window, dtype,
             span_len=span_len, write_start=write_start, plan=plan)
-    elif cfg.attn_chunk is not None and S > cfg.attn_chunk:
+    elif cfg.attn_chunk is not None and not cross and S > cfg.attn_chunk:
         out = _sdpa_chunked(q, _local_kv(k, q, cfg, plan),
                             _local_kv(v, q, cfg, plan), cfg.logit_softcap,
                             dtype, cfg.attn_chunk, window, bidir)
     else:
-        if bidir:
-            mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool,
+        if bidir or cross:   # the encoder, or every encoder key
+            mask = torch.ones((1, 1, 1, S, Skv), dtype=torch.bool,
                               device=x.device)
         else:
             mask = causal_mask(S, S, 0, window, device=x.device)
@@ -408,6 +425,48 @@ def paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
     return cache
 
 
+def paged_write_targets(page_table: torch.Tensor, q_pos: torch.Tensor,
+                        pg: int, span_len=None, write_start=None):
+    """Where a paged step writes its (B, S) new K/V rows: (phys (B, S)
+    physical pages, off (B, S) offsets in them).  Positions past a row's
+    ``span_len``, below its ``write_start`` or past its table go to the
+    sink page 0."""
+    B, S = q_pos.shape
+    MP = page_table.shape[1]
+    pt = page_table.long()
+    # positions past the table (padding only) clamp, then go to the sink
+    phys = torch.gather(pt, 1, torch.clamp(q_pos // pg, max=MP - 1))
+    off = q_pos % pg
+    if span_len is not None or write_start is not None:
+        valid = torch.ones((B, S), dtype=torch.bool, device=q_pos.device)
+        if span_len is not None:
+            valid &= (torch.arange(S, device=q_pos.device)[None, :]
+                      < span_len.long()[:, None])
+        if write_start is not None:
+            valid &= q_pos >= write_start.long()[:, None]
+        phys = torch.where(valid, phys, torch.zeros_like(phys))
+    return phys, off
+
+
+def last_writes(phys: torch.Tensor, off: torch.Tensor,
+                pg: int) -> torch.Tensor:
+    """(B * S,): for each write, the row-major index of the LAST write to
+    the same (page, offset), the write the reference's ``.at[].set`` keeps
+    among duplicates.  Writing each position with its ``last`` row's
+    value makes colliding writes (padding positions on the sink page)
+    store one value, in whatever order the card runs them.  A stable sort
+    of the targets and a suffix minimum find it, with no host sync."""
+    target = (phys * pg + off).reshape(-1)
+    n = target.numel()
+    ts, perm = torch.sort(target, stable=True)
+    idx = torch.arange(n, device=target.device)
+    run_end = torch.cat([ts[1:] != ts[:-1],
+                         torch.ones(1, dtype=torch.bool, device=idx.device)])
+    end = torch.where(run_end, idx, torch.full_like(idx, n))
+    end = torch.flip(torch.cummin(torch.flip(end, [0]), 0).values, [0])
+    return torch.empty_like(perm).scatter_(0, perm, perm[end])
+
+
 def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
                   window, dtype, span_len=None, write_start=None, plan=None):
     """Write S new k/v rows through the page table (in place), attend over
@@ -418,7 +477,9 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
     Positions past a row's ``span_len`` and below its ``write_start`` are
     redirected to the sink page 0; unallocated table entries point at the
     sink too and are never attended (the causal mask admits only keys at
-    positions <= q_pos).
+    positions <= q_pos).  Where the dense gather runs on a float pool,
+    among duplicate targets the last write's value lands (``last_writes``),
+    deterministically: its padding queries read the sink.
 
     An int8 pool quantizes the span rows into its pages with
     ``kernels.kv_write.quantize_kv_write``; the stored-row rescale runs
@@ -440,17 +501,14 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
     B, S = q_pos.shape
     MP = page_table.shape[1]
     pt = page_table.long()
-    # positions past the table (padding only) clamp, then go to the sink
-    phys = torch.gather(pt, 1, torch.clamp(q_pos // pg, max=MP - 1))
-    off = q_pos % pg
-    if span_len is not None or write_start is not None:
-        valid = torch.ones((B, S), dtype=torch.bool, device=q.device)
-        if span_len is not None:
-            valid &= (torch.arange(S, device=q.device)[None, :]
-                      < span_len.long()[:, None])
-        if write_start is not None:
-            valid &= q_pos >= write_start.long()[:, None]
-        phys = torch.where(valid, phys, torch.zeros_like(phys))
+    phys, off = paged_write_targets(pt, q_pos, pg, span_len, write_start)
+
+    from repro_torch.kernels.ops import paged_dispatch
+
+    decision = paged_dispatch(
+        q.shape[3], pg, paged_kernel=cfg.paged_kernel,
+        softcap=cfg.logit_softcap is not None,
+        pool_replicated=plan is not None and plan.pool_replicated)
     if quantized:
         nK = (S + pg - 1) // pg + 1
         jcols = torch.clamp(
@@ -459,16 +517,17 @@ def _paged_attend(q, k, v, cache, page_table, q_pos, cfg: ModelConfig,
         resc = torch.gather(pt, 1, jcols)                     # (B, nK)
         kv_write.quantize_kv_write(kp, ks, phys, off, k, rescale_phys=resc)
         kv_write.quantize_kv_write(vp, vs, phys, off, v, rescale_phys=resc)
-    else:
+    elif decision == "kernel":
         kp[phys, off] = k.to(kp.dtype)
         vp[phys, off] = v.to(vp.dtype)
+    else:
+        # every write to a (page, offset) carries the value of the last
+        # one in row-major order, so colliding sink writes land alike
+        last = last_writes(phys, off, pg)
+        for pages, new in ((kp, k), (vp, v)):
+            rows = new.reshape(B * S, *new.shape[2:])[last]
+            pages[phys, off] = rows.reshape(new.shape).to(pages.dtype)
 
-    from repro_torch.kernels.ops import paged_dispatch
-
-    decision = paged_dispatch(
-        q.shape[3], pg, paged_kernel=cfg.paged_kernel,
-        softcap=cfg.logit_softcap is not None,
-        pool_replicated=plan is not None and plan.pool_replicated)
     if decision == "kernel":
         from repro_torch.kernels import paged as span_k
 
@@ -739,7 +798,8 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
 __all__ = [
     "norm_init", "norm_apply", "rope",
     "attention_init", "attention_apply", "attention_cache_init",
-    "paged_cache_init", "causal_mask",
+    "paged_cache_init", "paged_write_targets", "last_writes",
+    "causal_mask",
     "ffn_init", "ffn_apply", "moe_init", "moe_apply", "stack_trees",
     "embedding_init", "embed", "unembed", "GLOBAL_WINDOW",
 ]

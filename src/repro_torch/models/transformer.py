@@ -1,5 +1,5 @@
-"""Model assembly for attention stacks (port of
-``repro.models.transformer``).
+"""Model assembly: decoder stacks, hybrid (Zamba2) groups, encoder-decoder
+(port of ``repro.models.transformer``).
 
 Parameters keep the reference's pytree layout: nested dicts with the same
 keys, every decoder leaf stacked on a leading layer axis
@@ -9,8 +9,9 @@ reference scans that axis, the port loops over it.
 Public API:
   init_params(cfg, seed, device)                  -> params
   forward(params, batch, cfg)                     -> (logits, aux)
-  init_decode_cache(cfg, batch, max_len, device)  -> cache (the ring)
-  decode_step(params, tokens, cache, cfg)         -> (logits, cache)
+  init_decode_cache(cfg, batch, max_len, device)  -> cache (the ring and
+                                                     the Mamba states)
+  decode_step(params, tokens, cache, cfg, enc_out=None) -> (logits, cache)
   prefill(params, batch, cfg)                     -> last-position logits
   prefill_with_cache(params, tokens, cache, cfg)  -> (logits, cache)
   init_paged_pool(cfg, n_pages, page_size, ...)   -> pool
@@ -18,24 +19,39 @@ Public API:
   paged_mixed_step(params, tokens, start, span_len, page_table, pool, cfg)
                                                   -> (logits, pool)
 
-The ring cache and the paged pool are written in place: the reference
-donates them to its jitted steps.  A block may carry gemma2's sandwich
-norms (``ln1_post`` / ``ln2_post`` on each sublayer's output) and a
-mixture-of-experts FFN (``moe``) in place of ``ffn``; the stack's ``aux``
-holds the MoE load-balance loss, averaged over the layers as the
-reference does.  SSM, hybrid and encoder-decoder stacks, modality
-frontends and training are not ported yet and raise
-``NotImplementedError``.
+The ring cache, the Mamba states and the paged pool are written in
+place: the reference donates them to its jitted steps.  A block may carry
+gemma2's sandwich norms (``ln1_post`` / ``ln2_post`` on each sublayer's
+output) and a mixture-of-experts FFN (``moe``) in place of ``ffn``; the
+stack's ``aux`` holds the MoE load-balance loss, averaged over the layers
+as the reference does.
+
+Besides attention stacks the port has the reference's other families:
+Mamba2 stacks (``layer_kind="mamba"``, ``models/mamba2.py``), Zamba2
+hybrids (``"hybrid"``: groups of ``shared_attn_every`` Mamba layers, each
+group followed by ONE shared attention block whose parameters every group
+reuses while each group keeps its own ring, then a tail of the leftover
+Mamba layers), encoder-decoder models (``encdec``: a bidirectional
+encoder over ``enc_embeds``, the stubbed audio frontend, or
+``enc_tokens``, and a cross-attention sublayer ``xattn`` in every decoder
+block) and the stubbed vision frontend (``patch_embeds`` prepended to the
+text and cut off again).  Cross-attention recomputes its K and V from
+``enc_out`` at every call, the decode step's included, as the reference
+does; with ``enc_out=None`` (the engines' text stream) it attends the
+block's own tokens, causally, as the reference's does.  Training is not
+ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ModelConfig
 
 GLOBAL_WINDOW = L.GLOBAL_WINDOW
@@ -43,14 +59,6 @@ GLOBAL_WINDOW = L.GLOBAL_WINDOW
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.layer_kind != "attn":
-        raise NotImplementedError(f"{cfg.layer_kind} stacks are not ported")
-    if cfg.encdec or cfg.frontend is not None:
-        raise NotImplementedError(
-            "encoder-decoder and modality frontends are not ported yet")
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -65,7 +73,8 @@ def layer_params(stacked: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def attn_block_init(gen: torch.Generator, cfg: ModelConfig,
+                    cross: bool = False) -> dict:
     dev = gen.device
     p = {
         "ln1": L.norm_init(cfg.d_model, cfg.norm_type, device=dev),
@@ -79,19 +88,28 @@ def attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.sandwich_norm:
         p["ln1_post"] = L.norm_init(cfg.d_model, cfg.norm_type, device=dev)
         p["ln2_post"] = L.norm_init(cfg.d_model, cfg.norm_type, device=dev)
+    if cross:
+        p["ln_x"] = L.norm_init(cfg.d_model, cfg.norm_type, device=dev)
+        # its K and V read enc_out, its q the decoder stream: never a
+        # fused QKV projection
+        p["xattn"] = L.attention_init(
+            gen, dataclasses.replace(cfg, fused_proj=False))
     return p
 
 
 def attn_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      window=None, cache: Optional[dict] = None, pos=None,
                      page_table=None, span_len=None, write_start=None,
-                     bidir: bool = False, plan=None,
+                     enc_out=None, bidir: bool = False, plan=None,
                      aux: Optional[dict] = None) -> torch.Tensor:
     """One decoder block; a paged cache is written in place.  Under a
     tensor-parallel ``plan`` the block's activations are whole on every
     rank between the sublayers (each ends in its row-parallel
     all-reduce).  An MoE block adds its load-balance loss to
-    ``aux["lb_loss"]`` when ``aux`` is given."""
+    ``aux["lb_loss"]`` when ``aux`` is given.  A block with ``xattn``
+    cross-attends ``enc_out`` (every key visible, no RoPE) after its
+    self-attention; with ``enc_out=None`` that sublayer attends the
+    block's own tokens, as the reference's does."""
     h = L.norm_apply(p["ln1"], x, cfg.norm_type)
     a, _ = L.attention_apply(
         p["attn"], h, cfg, window=window,
@@ -101,6 +119,11 @@ def attn_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.sandwich_norm:
         a = L.norm_apply(p["ln1_post"], a, cfg.norm_type)
     x = x + a
+    if "xattn" in p:
+        h = L.norm_apply(p["ln_x"], x, cfg.norm_type)
+        a, _ = L.attention_apply(p["xattn"], h, cfg, kv_input=enc_out,
+                                 backend=cfg.monarch.backend)
+        x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm_type)
     if "moe" in p:
         f, moe_aux = L.moe_apply(p["moe"], h, cfg,
@@ -126,37 +149,99 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
             for i in range(cfg.n_layers)]
 
 
-def decoder_stack_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
-    return {"layers": L.stack_trees([attn_block_init(gen, cfg)
-                                     for _ in range(cfg.n_layers)])}
+def _mamba_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 cache: Optional[dict]) -> torch.Tensor:
+    h = L.norm_apply(p["ln"], x, cfg.norm_type)
+    y, _ = M.mamba_apply(p["mamba"], h, cfg, cache=cache,
+                         backend=cfg.monarch.backend)
+    return x + y
+
+
+def _mamba_layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return {"ln": L.norm_init(cfg.d_model, cfg.norm_type, device=gen.device),
+            "mamba": M.mamba_init(gen, cfg)}
+
+
+def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """A hybrid stack's (groups of ``shared_attn_every`` Mamba layers,
+    leftover tail layers)."""
+    n_groups = cfg.n_layers // cfg.shared_attn_every
+    return n_groups, cfg.n_layers - n_groups * cfg.shared_attn_every
+
+
+def decoder_stack_init(gen: torch.Generator, cfg: ModelConfig,
+                       cross: bool = False) -> dict:
+    if cfg.layer_kind == "attn":
+        return {"layers": L.stack_trees([attn_block_init(gen, cfg, cross)
+                                         for _ in range(cfg.n_layers)])}
+    if cfg.layer_kind == "mamba":
+        return {"layers": L.stack_trees([_mamba_layer_init(gen, cfg)
+                                         for _ in range(cfg.n_layers)])}
+    # hybrid (Zamba2): (n_groups, g, ...) Mamba layers, one shared block
+    g = cfg.shared_attn_every
+    n_groups, tail = hybrid_groups(cfg)
+    p = {"groups": L.stack_trees([
+        L.stack_trees([_mamba_layer_init(gen, cfg) for _ in range(g)])
+        for _ in range(n_groups)]),
+        "shared_attn": attn_block_init(gen, cfg)}
+    if tail:
+        p["tail"] = L.stack_trees([_mamba_layer_init(gen, cfg)
+                                   for _ in range(tail)])
+    return p
 
 
 def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                         cache: Optional[dict] = None, pos=None,
                         page_table=None, span_len=None, write_start=None,
-                        bidir: bool = False, train: bool = False,
-                        plan=None, aux_loss: bool = True):
+                        enc_out=None, bidir: bool = False,
+                        train: bool = False, plan=None,
+                        aux_loss: bool = True):
     """Loops the stacked layers; returns (x, cache, aux), ``aux`` holding
     the MoE load-balance loss summed over the layers over ``n_layers`` (0
-    for a dense stack).  ``aux_loss=False`` (the serving steps, which
-    drop it as the reference's jitted steps do) computes no loss and
-    returns an empty ``aux``.  A paged cache is updated in place and
-    returned as given."""
-    _check_ported(cfg)
+    for a dense, Mamba or hybrid stack).  ``aux_loss=False`` (the serving
+    steps, which drop it as the reference's jitted steps do) computes no
+    loss and returns an empty ``aux``.  A cache (the ring and the Mamba
+    states, or a paged pool) is updated in place and returned as
+    given."""
     aux = ({"lb_loss": torch.zeros((), dtype=torch.float32,
                                    device=x.device)} if aux_loss else None)
-    for i, win in enumerate(layer_windows(cfg)):
-        p = layer_params(params["layers"], i)
-        c = layer_params(cache["layers"], i) if cache is not None else None
-        x = attn_block_apply(
-            p, x, cfg, window=win, cache=c, pos=pos, page_table=page_table,
-            span_len=span_len, write_start=write_start, bidir=bidir,
-            plan=plan, aux=aux)
-    if aux is None:
-        return x, cache, {}
-    aux["lb_loss"] = aux["lb_loss"] / cfg.n_layers
-    return x, cache, aux
+    if cfg.layer_kind == "attn":
+        for i, win in enumerate(layer_windows(cfg)):
+            p = layer_params(params["layers"], i)
+            c = layer_params(cache["layers"], i) if cache is not None \
+                else None
+            x = attn_block_apply(
+                p, x, cfg, window=win, cache=c, pos=pos,
+                page_table=page_table, span_len=span_len,
+                write_start=write_start, enc_out=enc_out, bidir=bidir,
+                plan=plan, aux=aux)
+        if aux is not None:
+            aux["lb_loss"] = aux["lb_loss"] / cfg.n_layers
+    elif cfg.layer_kind == "mamba":
+        for i in range(cfg.n_layers):
+            x = _mamba_layer(
+                layer_params(params["layers"], i), x, cfg,
+                None if cache is None else layer_params(cache["layers"], i))
+    else:
+        # hybrid: each group's Mamba layers, then the ONE shared block
+        # (global attention) over that group's own ring; then the tail
+        n_groups, _ = hybrid_groups(cfg)
+        shared = params["shared_attn"]
+        for gi in range(n_groups):
+            gp = layer_params(params["groups"], gi)
+            gc = None if cache is None else layer_params(cache["groups"], gi)
+            for j in range(cfg.shared_attn_every):
+                x = _mamba_layer(
+                    layer_params(gp, j), x, cfg,
+                    None if gc is None else layer_params(gc["mamba"], j))
+            x = attn_block_apply(
+                shared, x, cfg, window=None,
+                cache=None if gc is None else {"attn": gc["attn"]}, pos=pos)
+        for i in range(hybrid_groups(cfg)[1]):
+            x = _mamba_layer(
+                layer_params(params["tail"], i), x, cfg,
+                None if cache is None else layer_params(cache["tail"], i))
+    return x, cache, ({} if aux is None else aux)
 
 
 # ---------------------------------------------------------------------------
@@ -164,26 +249,62 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's configuration: ``n_enc_layers`` attention blocks with
+    dense FFNs."""
+    return dataclasses.replace(cfg, n_layers=cfg.n_enc_layers, moe=None,
+                               layer_kind="attn")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> dict:
     """Random parameters from ``seed``, generated on ``device``.  They
     match the reference's initializer in distribution, not in value."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return {
+    p = {
         "embedding": L.embedding_init(gen, cfg),
-        "decoder": decoder_stack_init(gen, cfg),
+        "decoder": decoder_stack_init(gen, cfg, cross=cfg.encdec),
         "ln_f": L.norm_init(cfg.d_model, cfg.norm_type, device=dev),
     }
+    if cfg.encdec:
+        p["encoder"] = decoder_stack_init(gen, _enc_cfg(cfg))
+        p["ln_enc"] = L.norm_init(cfg.d_model, cfg.norm_type, device=dev)
+    return p
+
+
+def _encode(params: dict, batch: dict, cfg: ModelConfig,
+            train: bool = False) -> torch.Tensor:
+    """The encoder pass (bidirectional).  The audio frontend is a stub:
+    the batch carries precomputed frame embeddings (``enc_embeds``), or
+    else ``enc_tokens`` are embedded."""
+    dtype = _dtype(cfg)
+    if "enc_embeds" in batch:
+        h = batch["enc_embeds"].to(dtype)
+    else:
+        h = L.embed(params["embedding"], batch["enc_tokens"], cfg, dtype)
+    h, _, _ = decoder_stack_apply(params["encoder"], h, _enc_cfg(cfg),
+                                  bidir=True, train=train, aux_loss=False)
+    return L.norm_apply(params["ln_enc"], h, cfg.norm_type)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True):
-    """Full-sequence causal forward: (logits (B,S,Vp) fp32, aux)."""
+    """Full-sequence causal forward: (logits (B,S,Vp) fp32, aux).  A
+    vision frontend's ``patch_embeds`` (B, n, d) are prepended to the
+    text and their positions cut off the output; an encoder-decoder model
+    encodes ``enc_embeds`` or ``enc_tokens`` first."""
     dtype = _dtype(cfg)
     x = L.embed(params["embedding"], batch["tokens"], cfg, dtype)
-    x, _, aux = decoder_stack_apply(params["decoder"], x, cfg, train=train)
+    n_front = 0
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        n_front = batch["patch_embeds"].shape[1]
+        x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
+    enc_out = _encode(params, batch, cfg, train) if cfg.encdec else None
+    x, _, aux = decoder_stack_apply(params["decoder"], x, cfg,
+                                    enc_out=enc_out, train=train)
+    if n_front:
+        x = x[:, n_front:, :]
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
     return L.unembed(params["embedding"], x, cfg), aux
 
@@ -193,29 +314,54 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True):
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device: DeviceLike = None) -> dict:
-    """The ring cache of an attention stack, zeros:
-    {"layers": {"attn": {"k": (L, B, max_len, KV, hd), "v": ...}},
-    "pos": (B,) int32}, K and V in the model dtype."""
-    _check_ported(cfg)
+    """The decode cache, zeros, in the reference's layout: an attention
+    stack's ring {"layers": {"attn": {"k": (L, B, max_len, KV, hd), "v":
+    ...}}} (K and V in the model dtype); a Mamba stack's states
+    {"layers": {"conv": (L, B, d_conv - 1, conv_dim) fp32, "ssm": (L, B,
+    H, P, N) fp32}} (``mamba2.mamba_cache_init``: the conv state is
+    stored wide and read at its window's dtype); a hybrid's {"groups":
+    {"mamba": (n_groups, g, ...) states, "attn": (n_groups, ...) rings},
+    "tail": (tail, ...) states}; and "pos" (B,) int32."""
     dev = resolve_device(device)
-    one = L.attention_cache_init(cfg, batch, max_len, _dtype(cfg),
-                                 device=dev)
-    return {"layers": {"attn": {name: a.new_zeros((cfg.n_layers, *a.shape))
-                                for name, a in one.items()}},
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    dtype = _dtype(cfg)
+
+    def stacked(one: dict, prefix: tuple) -> dict:
+        return {name: a.new_zeros((*prefix, *a.shape))
+                for name, a in one.items()}
+
+    def ring():
+        return L.attention_cache_init(cfg, batch, max_len, dtype, device=dev)
+
+    if cfg.layer_kind == "attn":
+        cache = {"layers": {"attn": stacked(ring(), (cfg.n_layers,))}}
+    else:
+        state = M.mamba_cache_init(cfg, batch, device=dev)
+        if cfg.layer_kind == "mamba":
+            cache = {"layers": stacked(state, (cfg.n_layers,))}
+        else:
+            n_groups, tail = hybrid_groups(cfg)
+            cache = {"groups": {
+                "mamba": stacked(state, (n_groups, cfg.shared_attn_every)),
+                "attn": stacked(ring(), (n_groups,))}}
+            if tail:
+                cache["tail"] = stacked(state, (tail,))
+    cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return cache
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
-                cfg: ModelConfig):
+                cfg: ModelConfig, enc_out=None):
     """One new token per batch row (``tokens`` (B,)) against the running
-    ring: its k/v rows are written at ``cache["pos"]`` and ``pos`` advances
-    by one, both in place.  Returns (fp32 logits (B, Vp), the same
-    cache)."""
+    cache: its k/v rows are written at ``cache["pos"]``, the Mamba states
+    advance, and ``pos`` advances by one, all in place.  An
+    encoder-decoder model cross-attends ``enc_out`` (its K and V
+    recomputed from it at every step, as in the reference).  Returns
+    (fp32 logits (B, Vp), the same cache)."""
     dtype = _dtype(cfg)
     pos = cache["pos"]
     x = L.embed(params["embedding"], tokens[:, None], cfg, dtype)
     x, _, _ = decoder_stack_apply(params["decoder"], x, cfg, cache=cache,
-                                  pos=pos, aux_loss=False)
+                                  pos=pos, enc_out=enc_out, aux_loss=False)
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
     logits = L.unembed(params["embedding"], x, cfg)
     pos.add_(1)
@@ -232,8 +378,11 @@ def prefill_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
                        cfg: ModelConfig):
     """The whole (B, S) prompt block in ONE forward through the ring:
     every layer writes its S k/v rows a row at ``pos`` (in place) and
-    ``pos`` advances by S.  Returns (last-position fp32 logits (B, Vp),
-    the same cache)."""
+    ``pos`` advances by S.  Attention stacks only (Mamba states advance a
+    token at a time).  Returns (last-position fp32 logits (B, Vp), the
+    same cache)."""
+    if cfg.layer_kind != "attn":
+        raise ValueError("batched cache prefill needs attn layers")
     S = tokens.shape[1]
     dtype = _dtype(cfg)
     pos = cache["pos"]
@@ -259,8 +408,9 @@ def init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int,
     ``kv_dtype="int8"`` adds ``k_scales``/``v_scales`` (L, P, KV) fp32, one
     scale per (page, kv_head), with the page axis at 1 like the pages.
     ``n_kv_heads``: the KV heads this rank holds (``serving.device_kv``;
-    default all)."""
-    _check_ported(cfg)
+    default all).  Attention stacks only."""
+    if cfg.layer_kind != "attn":
+        raise ValueError("paged KV cache needs attn layers")
     one = L.paged_cache_init(cfg, n_pages, page_size, _dtype(cfg),
                              kv_dtype=kv_dtype, device=resolve_device(device),
                              n_kv_heads=n_kv_heads)
@@ -320,6 +470,7 @@ def paged_mixed_step(params: dict, tokens: torch.Tensor, start: torch.Tensor,
 
 __all__ = [
     "init_params", "forward", "init_decode_cache", "decode_step", "prefill",
+    "hybrid_groups",
     "prefill_with_cache", "init_paged_pool", "paged_mixed_step",
     "cow_copy_pages", "decoder_stack_init", "decoder_stack_apply",
     "attn_block_init", "attn_block_apply", "layer_params", "layer_windows",

@@ -275,7 +275,9 @@ class ContinuousBatchingEngine:
                  mesh=None,
                  device: DeviceLike = None):
         if cfg.layer_kind != "attn":
-            raise ValueError("continuous batching needs an attn stack")
+            raise ValueError(
+                "continuous batching needs an attn stack; SSM/hybrid models "
+                "serve through the legacy ServeEngine")
         if quantize is not None and quantize not in BITS_BY_NAME:
             raise ValueError(
                 f"quantize must be one of {sorted(BITS_BY_NAME)} or None, "
@@ -1053,8 +1055,11 @@ class ServeEngine:
     (``kernels.sample.sample_block``), and the tokens are fetched to the
     host once, where EOS trimming keeps the reference's rule.  With
     ``_prefill = None`` the prompt runs token by token through
-    ``_decode``, as the reference's SSM path and its throughput baseline
-    run it.
+    ``_decode``, as the reference's throughput baseline runs it and as
+    every Mamba and hybrid stack runs it (their states advance a token at
+    a time, written in place inside the graph).  An encoder-decoder
+    model serves its text stream, its cross-attention over the block's
+    own tokens (no ``enc_out``), as the reference's engine does.
 
     Sampling is the reference's: greedy at ``temperature <= 0``, else
     ``jax.random.categorical(key, logits / t)`` over the whole (B, Vp)
@@ -1068,16 +1073,15 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
                  device: DeviceLike = None):
-        if cfg.layer_kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.layer_kind} stacks are not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_to(params, self.device)
         self.max_len = max_len
         self._rings: dict[int, dict] = {}
         self._decode = RingDecode(cfg, graphs=self.device.type == "cuda")
-        self._prefill = functools.partial(T.prefill_with_cache, cfg=cfg)
+        self._prefill = None
+        if cfg.layer_kind == "attn":
+            self._prefill = functools.partial(T.prefill_with_cache, cfg=cfg)
 
     def _ring(self, batch: int) -> dict:
         """The ring of ``batch`` rows, zeroed (``pos`` too)."""

@@ -9,9 +9,9 @@ handed -- one a (batch size, ``max_len``) -- gets one graph through
 ring's first step runs eagerly on a static copy of the token input and
 is then captured on that buffer; every later step copies its tokens into
 the buffer and replays; the launches a replay runs are counted as the
-eager step's; a failed capture or replay raises.  The ring (K, V and
-``pos``) and the params are the graph's state, read and written in
-place, so a ring must be handed the same params and the same cache every
+eager step's; a failed capture or replay raises.  The ring (K, V, a
+Mamba stack's ``conv`` and ``ssm`` states and ``pos``) and the params are
+the graph's state, read and written in place, so a ring must be handed the same params and the same cache every
 time (the legacy engine keeps one ring a batch size): anything else
 raises.  The logits are the graph's static output, valid until that
 ring's next step.
@@ -38,6 +38,13 @@ def _copy_in(tokens: torch.Tensor,
     return tokens.clone() if out is None else out.copy_(tokens)
 
 
+def _ring_len(cache: dict) -> int:
+    """The ring's ``max_len`` (0 for a Mamba stack, which keeps no ring)."""
+    attn = cache.get("layers", {}).get("attn") \
+        or cache.get("groups", {}).get("attn")
+    return attn["k"].shape[-3] if attn else 0
+
+
 class RingDecode:
     """``transformer.decode_step`` of ``cfg``, eager, or with ``graphs``
     one graph a ring (``new_graph`` makes a graph object, as
@@ -58,7 +65,7 @@ class RingDecode:
     def __call__(self, params, tokens: torch.Tensor, cache: dict):
         if self.graphs is None:
             return T.decode_step(params, tokens, cache, self.cfg)
-        ring = (tokens.shape[0], cache["layers"]["attn"]["k"].shape[2])
+        ring = (tokens.shape[0], _ring_len(cache))
         bound = self._bound.setdefault(ring, (params, cache))
         if bound[0] is not params or bound[1] is not cache:
             raise ValueError(

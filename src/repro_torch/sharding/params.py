@@ -179,7 +179,9 @@ def tp_plan(tree, cfg: ModelConfig, mesh) -> TPPlan:
     head counts it divides); KV heads only where the pool splits too.
     Norms without a rule (gemma2's ``ln1_post`` / ``ln2_post`` too) stay
     whole on every rank.  A mixture-of-experts model at ``tp`` > 1 raises
-    ``NotImplementedError``: it needs expert parallelism."""
+    ``NotImplementedError``: it needs expert parallelism; so do Mamba and
+    hybrid stacks and encoder-decoder models, whose rules are not
+    ported."""
     from repro_torch.serving.device_kv import kv_shard_size
 
     tp = mesh.model
@@ -190,6 +192,16 @@ def tp_plan(tree, cfg: ModelConfig, mesh) -> TPPlan:
             f"{cfg.name}: mixture-of-experts layers at tp = {tp} need expert "
             f"parallelism (experts over the \"model\" axis), which is not "
             f"ported yet")
+    if tp > 1 and (cfg.layer_kind != "attn" or cfg.encdec):
+        # the reference splits the Mamba leaves over "model" (its rules
+        # for in_proj, out_proj, conv_w, conv_b, A_log, dt_bias,
+        # norm_scale and D, repro/sharding/params.py:65-72), and the
+        # encoder's and the cross-attention's heads as any attention's
+        what = ("Mamba layers (in_proj, out_proj and the SSM heads' "
+                "leaves over \"model\")" if cfg.layer_kind != "attn" else
+                "the encoder and the cross-attention (xattn) under a plan")
+        raise NotImplementedError(
+            f"{cfg.name}: {what} at tp = {tp} are not ported yet")
     ok = {g: tp > 1 for g in GROUPS}
     ok["heads"] &= cfg.n_heads % tp == 0
     ok["vocab"] &= cfg.vocab_padded % tp == 0

@@ -49,6 +49,11 @@ ARCHS = ["bert-large-lm", "codeqwen1.5-7b", "minicpm-2b", "nemotron-4-15b",
 # the CPU: these configs' params come from numpy at a seed, in its layout
 # and at its scales (tests/_torch_numpy_params.py)
 NUMPY_PARAMS = {"gemma2-27b", "granite-moe-1b-a400m", "qwen2-moe-a2.7b"}
+# the Mamba2, Zamba2 hybrid, encoder-decoder and vision-frontend configs:
+# their models are held to the reference in tests/test_torch_mamba.py and
+# tests/test_torch_encdec.py
+FAMILY_ARCHS = ["mamba2-2.7b", "zamba2-7b", "seamless-m4t-large-v2",
+                "internvl2-76b"]
 
 
 def _kernels_on(cfg):
@@ -77,19 +82,24 @@ def _model(arch):
 
 
 def test_ported_archs():
-    assert PORTED_ARCHS == ["gpt2-medium", *ARCHS]
+    assert PORTED_ARCHS == ["gpt2-medium", *ARCHS, *FAMILY_ARCHS]
 
 
 @pytest.mark.parametrize("variant", ["", ":dense", ":mxu"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_config_fields_equal_the_reference(arch, variant):
     """Every field of the configuration, the Monarch spec's included,
-    equal to the reference's, also at ``.reduced()``."""
+    equal to the reference's, also at ``.reduced()``; and (the Mamba,
+    hybrid, encoder-decoder and frontend configs) their parameter
+    counts, total and active."""
     j, t = jget_config(arch + variant), tget_config(arch + variant)
     for jc, tc in ((j, t), (j.reduced(), t.reduced())):
         jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
         assert td == jd
         assert tc.vocab_padded == jc.vocab_padded and tc.hd == jc.hd
+        if arch in FAMILY_ARCHS:
+            assert (tc.param_count(), tc.active_param_count()) == (
+                jc.param_count(), jc.active_param_count())
 
 
 def test_published_widths_and_layers():

@@ -29,6 +29,7 @@ from repro.serving.request import (Request as JRequest,
                                    RequestState as JRequestState,
                                    SamplingParams as JSamplingParams,
                                    Sequence as JSequence)
+from _torch_numpy_params import both
 from repro_torch.configs import PORTED_ARCHS
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
@@ -98,8 +99,14 @@ def test_hbm_prices_identical(arch, kv_dtype, tp, paged):
 def test_cim_prices_identical(arch, kv_dtype, tp, paged):
     kw = dict(kv_bits=KV_BITS[kv_dtype], tp=tp, paged_kernel=paged,
               kv_gather_overhead=1.0)
+    try:
+        j = jserving.CIMCostModel(jget_config(arch), **kw)
+    except ValueError as e:   # the reference's own refusal, e.g. a Mamba
+        # stack's d_ff = 0 FFN: the port refuses it alike
+        with pytest.raises(ValueError, match=str(e)):
+            tserving.CIMCostModel(tget_config(arch), **kw)
+        return
     t = tserving.CIMCostModel(tget_config(arch), **kw)
-    j = jserving.CIMCostModel(jget_config(arch), **kw)
     for attr in ("strategy", "per_token_ns", "per_token_nj", "kv_bits",
                  "attn_dpu_ns_per_key", "weight_bits", "tp", "kv_shard",
                  "reduce_bus_gbps", "allreduce_bytes_per_token",
@@ -126,11 +133,12 @@ def test_cim_options_identical(options):
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_hbm_from_params_identical(arch, bits):
     """Weight bytes priced from the actual tree: fp32 factors, or int8 /
-    packed int4 containers."""
+    packed int4 containers.  The tree is the reference's layout drawn with
+    numpy (``tests/_torch_numpy_params.py``): the prices read only its
+    shapes and dtypes, and the reference's own initializer takes 5-25 s a
+    model here for the MoE and Mamba stacks."""
     jc, tc = jget_config(arch).reduced(), tget_config(arch).reduced()
-    jp = JT.init_params(jax.random.PRNGKey(0), jc)
-    tp_ = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
-                            device="cpu")
+    jp, tp_ = both(jc)
     if bits is not None:
         jp, tp_ = jquantize_tree(jp, bits), tquantize_tree(tp_, bits)
     t = tserving.HBMCostModel.from_params(tc, tp_, kv_dtype="int8",

@@ -18,6 +18,10 @@ experts, top-2; qwen2 keeps its 64 slots and one shared expert).
   legacy ``ServeEngine`` are ``tests/test_torch_families.py``'s.
 * A mixture-of-experts model at tp > 1 raises, naming expert
   parallelism.
+* A dense-attention MoE step (``paged_kernel=False``: padding queries
+  read the sink page) equals the reference's, pool, logits and routes:
+  colliding sink writes keep the last write in row-major order, as the
+  reference's ``.at[].set`` does on the CPU (``layers.last_writes``).
 * chip_smoke.py's route check, rehearsed on constructed routes: a token
   displaced from its capacity slot by another token's flip at a near tie
   passes as a near tie; a flip without one fails.
@@ -51,6 +55,7 @@ from repro_torch.core.quant import quantize_tree as tquantize_tree
 from repro_torch.kernels import monarch as KM
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
 from repro_torch.models.fuse import fuse_model as tfuse_model
 from repro_torch.sharding.params import tp_plan
 from _torch_numpy_params import both
@@ -348,6 +353,76 @@ def test_engine_tokens_equal_reference(arch, mode):
     moe = teng.params["decoder"]["layers"]["moe"]
     assert set(moe["experts"]) == {"w1g", "w2"}
     assert "Lq" in moe["experts"]["w1g"] and "w" in moe["router"]
+
+
+def test_sink_writes_keep_the_last_in_row_major_order():
+    """The reference's ``.at[].set`` keeps the last of duplicate writes on
+    the CPU, in row-major order of the index arrays; ``last_writes`` names
+    that write for every write to the same (page, offset)."""
+    a = jnp.zeros((3, 4)).at[jnp.asarray([[1, 2, 1], [1, 0, 1]]),
+                             jnp.asarray([[3, 0, 3], [3, 1, 3]])].set(
+        jnp.asarray([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]]))
+    assert float(a[1, 3]) == 6.0 and float(a[2, 0]) == 2.0
+    pt = torch.tensor([[1, 0], [2, 0]], dtype=torch.int32)
+    q_pos = torch.tensor([[0, 1, 2, 3], [1, 2, 3, 4]])
+    phys, off = TL.paged_write_targets(pt, q_pos, 2,
+                                       span_len=torch.tensor([4, 1]))
+    last = TL.last_writes(phys, off, 2)
+    # row 0 writes page 1, then the sink (its table's 0) at offsets 0, 1;
+    # row 1 page 2 at offset 1, then its padding the sink at 0, 1, 0
+    assert phys.tolist() == [[1, 1, 0, 0], [2, 0, 0, 0]]
+    assert off.tolist() == [[0, 1, 0, 1], [1, 0, 1, 0]]
+    assert last.tolist() == [0, 1, 7, 6, 4, 7, 6, 7]
+
+
+def test_dense_attention_moe_step_equals_reference():
+    """ROADMAP §C 4's case: a .reduced() qwen2-moe-a2.7b step with
+    ``paged_kernel=False`` (the dense gather), rows with padding (a short
+    span, an empty one) whose table entries past the span are the sink,
+    so their padding queries read the sink rows their colliding writes
+    left.  The pool (sink page included), the logits and every layer's
+    routes (padding tokens' included, which take capacity) are the
+    reference's."""
+    jc, tc, jp, tp = _model("qwen2-moe-a2.7b")
+    jc = dataclasses.replace(jc, paged_kernel=False)
+    tc = dataclasses.replace(tc, paged_kernel=False)
+    B, S, pg = 3, 8, 4
+    toks = np.random.default_rng(12).integers(0, jc.vocab, (B, S)).astype(
+        np.int32)
+    table = np.array([[1, 2, 0, 0], [3, 0, 0, 0], [0, 0, 0, 0]], np.int32)
+    start = np.zeros(B, np.int32)
+    spans = np.array([8, 3, 0], np.int32)
+    jpool = JT.init_paged_pool(jc, 4, pg)
+    tpool = TT.init_paged_pool(tc, 4, pg, device="cpu")
+    jroutes, troutes = [], []
+    top_k, route = jax.lax.top_k, TL._route
+
+    def rec_top_k(x, k):     # traced inside the reference's layer scan
+        out = top_k(x, k)
+        jax.debug.callback(lambda i: jroutes.append(np.asarray(i)), out[1])
+        return out
+
+    def rec_route(logits, mc):
+        out = route(logits, mc)
+        troutes.append(out[2].numpy())
+        return out
+
+    jax.lax.top_k, TL._route = rec_top_k, rec_route
+    try:
+        want, jpool = JT.paged_mixed_step(
+            jp, *map(jnp.asarray, (toks, start, spans, table)), jpool, jc)
+        got, _ = TT.paged_mixed_step(
+            tp, *map(torch.from_numpy, (toks, start, spans, table)), tpool,
+            tc)
+    finally:
+        jax.lax.top_k, TL._route = top_k, route
+    assert len(troutes) == len(jroutes) == tc.n_layers
+    for t, j in zip(troutes, jroutes):
+        assert t.tolist() == j.tolist()
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    for name in ("k_pages", "v_pages"):
+        np.testing.assert_allclose(_np(tpool["layers"]["attn"][name]),
+                                   _np(jpool["layers"]["attn"][name]), **F32)
 
 
 def test_moe_at_tp2_needs_expert_parallelism():

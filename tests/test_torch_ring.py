@@ -22,7 +22,8 @@ sum in other orders), tokens exactly:
   through the host stand-in of ``tests/test_torch_step_graphs.py``;
 * X3's block draw (``sample_block_plain``) bitwise
   ``jax.random.categorical`` on a (B, V) block;
-* the ``serve_decode`` example's ``main`` on the CPU, both engines.
+* the ``serve_decode`` example's ``main`` on the CPU, both engines, and
+  at a Mamba ``--arch`` (which always takes the legacy engine).
 """
 
 import dataclasses
@@ -482,6 +483,8 @@ def test_block_draw_is_jax_categorical_on_the_block(seed, B, V):
      "--temperature", "0.8"],
     ["--engine", "legacy", "--requests", "2", "--new-tokens", "3",
      "--quantize", "int8", "--fuse"],
+    # a Mamba stack always serves through the legacy engine
+    ["--arch", "mamba2-2_7b", "--requests", "2", "--new-tokens", "3"],
 ])
 def test_serve_decode_example_on_the_cpu(argv, capsys):
     from repro_torch.examples import serve_decode
