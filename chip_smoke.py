@@ -108,10 +108,10 @@ Phases, each printed as one JSON object per line:
               that budget over the calibration's scale; layer 0's converted
               wq pair mapped (SparseMap, DenseMap) and emulated on the
               card's crossbars in float64 (cim/functional.py) against B1
-              on 8 rows; one dense nemotron-4-15b layer projected card vs
-              CPU; the float serves of phases 3 and 3c priced by the HBM
-              cost model (the H100's data-sheet rates) and the CIM cost
-              model, each engine's calibration printed; and
+              on 8 rows; one dense nemotron-4-15b layer's wq projected
+              card vs CPU; the float serves of phases 3 and 3c priced by
+              the HBM cost model (the H100's data-sheet rates) and the CIM
+              cost model, each engine's calibration printed; and
               ``python -m repro_torch.examples.quickstart`` on the card
   3e. ft      fault-tolerant serving of gpt2-medium at full width (bf16,
               seed 0, phase 3's geometry, 768 MiB pool and 8-request
@@ -191,6 +191,25 @@ Phases, each printed as one JSON object per line:
               twice (the sink page's colliding writes: logits, pages,
               routes torch.equal); the serve_decode example at
               ``--arch mamba2-2_7b``
+  3i. train   training on the einsum backend (no kernel launches in the
+              phase): gpt2-medium (paper Monarch), granite-moe-1b-a400m
+              and mamba2-2.7b at full width cut to 2 layers, fp32, one
+              2 x 128 batch of the synthetic corpus, card vs CPU: the
+              loss within PARITY_REL_TOL, each gradient leaf within
+              TRAIN_GRAD_TOL of its own max |g| (the worst leaf named;
+              MoE routes compared first) from one make_train_step step on
+              each side (clipping off: the gradients read from the first
+              moment), the CPU's on a worker thread while the card trains
+              gpt2-medium at full width and depth (24 layers,
+              bf16 compute over fp32 masters, remat "full") trained by
+              the Trainer for 30 steps on make_batches(vocab 50257, 8 x
+              1024) under torch.use_deterministic_algorithms, its loss
+              falling, its step-20 checkpoint restored into a fresh
+              Trainer giving steps 20-29's losses again; one step under
+              remat "full" and "none" each: wall and device ms, tokens/s,
+              peak memory, the top 5 device ops; a pallas-backend Monarch
+              layer whose factors require grad refusing autograd
+              (``--train`` runs the build and this phase alone)
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
@@ -251,6 +270,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -260,6 +280,9 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS's workspace as torch.use_deterministic_algorithms needs it (phase
+# 3i); on Hopper it is PyTorch's default size, so no other phase changes
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 without tensor cores
@@ -297,6 +320,11 @@ D2S_LAYERS = 8
 # the CPU side of the nemotron-4-15b layer's D2S check: every 16th row of
 # (p x s) slices of each matrix (the slices project independently)
 D2S_NEMOTRON_CPU_EVERY = 16
+# the matrices of that layer D2S converts: wq alone (6144 x 6144).  The
+# whole layer (wq, wk, wv, wo, w1, w2) took the card 96-111 s, w1 and w2
+# most of it; D2S at every matrix kind stays covered by gpt2-medium's
+# converted layers above it
+D2S_NEMOTRON_MATMULS = ("wq",)
 # the parameterized matmuls D2S converts (paper Fig. 2b)
 D2S_MATMULS = ("wq", "wk", "wv", "wo", "w1", "w2")
 # the H100 SXM's data-sheet rates that the HBM cost model prices a step
@@ -342,6 +370,22 @@ ENC_BATCH, ENC_PROMPT, ENC_NEW = 8, 16, 16
 # phase 3h's internvl2-76b prefill: text tokens a row after its
 # n_frontend_tokens patch embeddings
 VLM_TEXT = 32
+# phase 3i, training (the einsum backend: the kernels have no backward
+# pass).  (a) card vs CPU, one train step of each config at full width cut
+# to TRAIN_PARITY_LAYERS layers, fp32, batch TRAIN_PARITY_BATCH: the loss
+# within PARITY_REL_TOL, each gradient leaf within TRAIN_GRAD_TOL of its
+# own max |g| (the gradient sums over the batch's tokens in other orders
+# on the two sides, so an element far below its leaf's largest carries
+# that sum's rounding); (b) gpt2-medium at full width and depth
+TRAIN_PARITY_ARCHS = ("gpt2-medium", "granite-moe-1b-a400m", "mamba2-2.7b")
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_BATCH = (2, 128)
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_DATA = dict(vocab=50257, seq_len=1024, global_batch=8)
+TRAIN_CFG = dict(steps=30, peak_lr=3e-3, warmup=5, schedule="wsd",
+                 ckpt_every=20, log_every=0)
+TRAIN_RESUME_AT = 20
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
 
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
            "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
@@ -2163,8 +2207,8 @@ def _recording_routes(into: list):
 
     def rec_route(logits, mc):
         out = route(logits, mc)
-        into.append({"probs": out[0].float().cpu(), "idx": out[2].cpu(),
-                     "k": mc.top_k})
+        into.append({"probs": out[0].detach().float().cpu(),
+                     "idx": out[2].cpu(), "k": mc.top_k})
         return out
 
     def rec_dispatch(idx, gates, E, cap, dtype):
@@ -2990,6 +3034,344 @@ def _phase_families(dev) -> None:
     _example_runs(dev, variants=(["--arch", "mamba2-2_7b"],))
 
 
+# -- phase 3i: training ----------------------------------------------------
+
+def _grad_report(card: dict, cpu: dict) -> dict:
+    """Each leaf's max |card - CPU| over the CPU's max |g|, the worst
+    leaf named."""
+    worst = ("", -1.0)
+    for path, g in cpu.items():
+        scale = float(g.abs().max())
+        rel = float((card[path] - g).abs().max()) / max(scale, 1e-30)
+        if rel > worst[1]:
+            worst = (path, rel)
+    return {"worst_leaf": worst[0], "worst_rel_to_max": worst[1],
+            "leaves": len(cpu)}
+
+
+@contextlib.contextmanager
+def _cpu_flush_denormals():
+    """The CPU on one thread with denormals flushed to zero.  A peaked
+    softmax over ~50k classes (mamba2-2.7b's random init: loss ~82)
+    leaves probabilities below fp32's normal range in the backward pass,
+    which x86 multiplies ~100x slower; ``set_flush_denormal`` flushes
+    them on the calling thread only, so the CPU side runs on that one.
+    The flushed values are below 1.2e-38, far under any limit here."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    torch.set_flush_denormal(True)
+    try:
+        yield
+    finally:
+        torch.set_flush_denormal(False)
+        torch.set_num_threads(n)
+
+
+TRAIN_LR, TRAIN_B1 = 1e-3, 0.9     # phase 3i (a)'s AdamW, clipping off
+
+
+def _train_parity_setup(arch: str, dev):
+    """Phase 3i (a)'s inputs: ``arch`` at full width cut to
+    TRAIN_PARITY_LAYERS, fp32, seed-3 random weights made on the card,
+    one batch of TRAIN_PARITY_BATCH from the data pipeline."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.models import transformer as T
+
+    c = dataclasses.replace(get_config(arch), n_layers=TRAIN_PARITY_LAYERS,
+                            dtype="float32")
+    B, S = TRAIN_PARITY_BATCH
+    batch = next(make_batches(DataConfig(vocab=c.vocab, seq_len=S,
+                                         global_batch=B, seed=7),
+                              prefetch=0))
+    return c, batch, T.init_params(c, seed=3, device=dev)
+
+
+def _train_parity_side(c, params, batch) -> dict:
+    """One ``make_train_step`` step (AdamW, clipping off) on the params'
+    device: its loss, its gradients read from the step's first moment
+    (one step from zeros leaves ``mu = (1 - b1) g``), the stepped
+    parameters, an MoE model's routes.  The CPU runs it on one thread with
+    denormals flushed (``_cpu_flush_denormals``)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves_with_paths
+
+    routes: list = []
+    init, step = make_train_step(
+        c, adamw(lr=TRAIN_LR, b1=TRAIN_B1, clip_norm=None))
+    dev = leaves_with_paths(params)[0][1].device
+    with contextlib.ExitStack() as ctx:
+        if c.moe:
+            ctx.enter_context(_recording_routes(routes))
+        if dev.type == "cpu":
+            ctx.enter_context(_cpu_flush_denormals())
+        t0 = time.perf_counter()
+        state, m = step(init(params=params), batch)
+        loss = float(m["loss"])
+        seconds = time.perf_counter() - t0
+    return dict(
+        loss=loss, lb=float(m["lb_loss"]), routes=routes, seconds=seconds,
+        step=int(state["opt"].step),
+        grads={"/".join(k): v.float().cpu() / (1 - TRAIN_B1)
+               for k, v in leaves_with_paths(state["opt"].mu)},
+        params={"/".join(k): v.float().cpu()
+                for k, v in leaves_with_paths(state["params"])})
+
+
+def _train_parity(arch: str, c, a: dict, b: dict, card: str) -> dict:
+    """Phase 3i (a): the card's step (``a``) against the CPU's (``b``):
+    the loss within PARITY_REL_TOL, each gradient leaf within
+    TRAIN_GRAD_TOL of its own max |g|, an MoE model's routes first
+    (``_route_check``).  The stepped parameters' distance over lr is a
+    reading: AdamW's first step is about lr * sign(g), so a gradient
+    within rounding of 0 moves its parameter by up to 2 lr."""
+    B, S = TRAIN_PARITY_BATCH
+    line = {"phase": "train_parity", "model": arch,
+            "layers": TRAIN_PARITY_LAYERS, "batch": [B, S],
+            "dtype": "float32", "remat": c.remat,
+            "loss": {"card": a["loss"], "cpu": b["loss"],
+                     "rel": abs(a["loss"] - b["loss"]) / abs(b["loss"])},
+            "lb_loss": {"card": a["lb"], "cpu": b["lb"]},
+            "grads": _grad_report(a["grads"], b["grads"]),
+            "stepped_params_max_abs_over_lr": max(
+                float((a["params"][k] - v).abs().max()) for k, v in
+                b["params"].items()) / TRAIN_LR,
+            "card_step_seconds": a["seconds"],
+            "cpu_step_seconds": b["seconds"],
+            "loss_tol": PARITY_REL_TOL, "grad_tol": TRAIN_GRAD_TOL,
+            "card": card}
+    if c.moe:
+        line["routes"] = _route_check(a["routes"], b["routes"],
+                                      f"train {arch}")
+    emit(line)
+    require(a["step"] == b["step"] == 1, f"train {arch}: no step taken")
+    require(line["loss"]["rel"] <= PARITY_REL_TOL,
+            f"train {arch}: loss card vs CPU {line['loss']}")
+    require(line["grads"]["worst_rel_to_max"] <= TRAIN_GRAD_TOL,
+            f"train {arch}: gradients card vs CPU {line['grads']}")
+    return line
+
+
+def _train_readings(cfg, batch, dev, card: str) -> dict:
+    """One train step of ``cfg`` under each remat policy, outside the
+    deterministic mode: wall ms (synchronized), tokens/s, peak memory
+    (``max_memory_allocated`` over the step, and that less what was
+    allocated before the train state was made: the step's own peak, its
+    state included, without what earlier phases keep alive), the step's
+    device ms and its top 5 device ops from torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    out = {}
+    tokens = int(np.prod(batch["tokens"].shape))
+    for remat in ("full", "none"):
+        c = dataclasses.replace(cfg, remat=remat)
+        init, step = make_train_step(c, adamw(lr=1e-4))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state = init(0, device=dev)
+        state, m = step(state, batch)          # warm
+        float(m["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+        ops = sorted(((getattr(e, "self_device_time_total", None)
+                       or e.self_cuda_time_total, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+        out[remat] = {"step_wall_ms": wall * 1e3,
+                      "step_device_ms": sum(t for t, _ in ops) / 1e3,
+                      "tokens_per_s": tokens / wall,
+                      "max_memory_allocated_gb": peak / 1e9,
+                      "step_peak_gb": (peak - before) / 1e9,
+                      "top5_device_ops_ms": [[k[:160], t / 1e3]
+                                             for t, k in ops[:5]]}
+        del state, m
+        torch.cuda.empty_cache()
+    emit({"phase": "train_readings", "model": cfg.name, "dtype": cfg.dtype,
+          "batch": list(batch["tokens"].shape), **out, "card": card})
+    return out
+
+
+def _train_gpt2_cfg():
+    """gpt2-medium as phase 3i (b) trains it: the config as published."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gpt2-medium")
+    require(cfg.n_layers == 24 and cfg.d_model == 1024
+            and cfg.dtype == "bfloat16" and cfg.remat == "full"
+            and cfg.monarch.enable and cfg.monarch.backend == "einsum",
+            f"gpt2-medium is not the config phase 3i trains: {cfg}")
+    return cfg
+
+
+def _train_gpt2(dev, card: str) -> list:
+    """Phase 3i (b): gpt2-medium at full width and depth (24 layers, d
+    1024, the paper's Monarch projections on the einsum backend, bf16
+    compute over fp32 masters, remat "full") trained by the ``Trainer``
+    for TRAIN_CFG's 30 steps on the synthetic corpus (TRAIN_DATA) under
+    ``torch.use_deterministic_algorithms``: its loss must fall (the last
+    5 steps' mean below the first 5's); then the step-20 checkpoint
+    restored into a fresh ``Trainer`` gives steps 20-29's losses again,
+    equal (1e-5 relative, each op named, where an op has no
+    deterministic version).  The CPU side of (a) runs meanwhile, so the
+    run's step times are readings under that load; ``_train_readings``
+    times the step alone.  Returns the batches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = _train_gpt2_cfg()
+    it = make_batches(DataConfig(**TRAIN_DATA))
+    batches = [next(it) for _ in range(TRAIN_CFG["steps"])]
+    it.close()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    tcfg = TrainerConfig(**TRAIN_CFG, ckpt_dir=str(TRAIN_DIR / "run"))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer = Trainer(cfg, tcfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run(iter(batches))
+            run_s = time.perf_counter() - t0
+            src = TRAIN_DIR / "run" / f"step_{TRAIN_RESUME_AT:08d}"
+            dst = TRAIN_DIR / "resume" / src.name
+            shutil.copytree(src, dst)
+            resumed = Trainer(cfg, dataclasses.replace(
+                tcfg, ckpt_dir=str(dst.parent)), device=dev)
+            t0 = time.perf_counter()
+            resumed.run(iter(batches[TRAIN_RESUME_AT:]))
+            resume_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught
+                     if "does not have a deterministic" in str(w.message)})
+    losses = [h["loss"] for h in trainer.history]
+    again = [h["loss"] for h in resumed.history]
+    want = losses[TRAIN_RESUME_AT:]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    diff = max(abs(a - b) / abs(b) for a, b in zip(again, want))
+    walls = [h["step_time_s"] * 1e3 for h in trainer.history[1:]]
+    line = {"phase": "train_gpt2", "model": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+            "data": TRAIN_DATA, "trainer": TRAIN_CFG, "losses": losses,
+            "first5_mean": first5, "last5_mean": last5,
+            "resumed_from": TRAIN_RESUME_AT,
+            "resumed_first_step": resumed.history[0]["step"],
+            "resumed_losses": again, "resumed_equal": again == want,
+            "resumed_max_rel": diff, "nondeterministic_ops": nondet,
+            "run_seconds": run_s, "resume_seconds": resume_s,
+            "deterministic_step_wall_ms_median_cpu_busy":
+                float(np.median(walls)),
+            "card": card}
+    emit(line)
+    require(last5 < first5, f"gpt2-medium's loss did not fall: {first5} -> "
+            f"{last5}")
+    require(resumed.history[0]["step"] == TRAIN_RESUME_AT
+            and len(again) == len(want),
+            "the resumed Trainer did not start at its checkpoint")
+    if nondet:
+        require(diff <= PARITY_REL_TOL, f"the resumed run's losses differ "
+                f"by {diff} (ops without a deterministic version: {nondet})")
+    else:
+        require(again == want, f"the resumed run's losses differ: {again} "
+                f"vs {want}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return batches
+
+
+def _train_refusal(dev, card: str) -> dict:
+    """Phase 3i (c): a Monarch layer on the kernel backend whose factors
+    require grad refuses autograd on the card (``RuntimeError``), where
+    it would otherwise fill its output through ctypes with no grad_fn."""
+    import torch
+
+    from repro_torch.core.linear import linear_apply
+    from repro_torch.core.monarch import init_monarch, make_dims
+    from repro_torch.kernels import launches
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    f = init_monarch(g, make_dims(1024, 1024, policy="paper"), device=dev)
+    L = f["L"].requires_grad_()
+    x = torch.randn(8, 1024, device=dev, generator=g)
+    before = sum(launches().values())
+    try:
+        y = linear_apply({"L": L, "R": f["R"]}, x, backend="pallas")
+        torch.autograd.grad(y.sum(), [L])
+        refused, message = False, ""
+    except RuntimeError as e:
+        refused, message = True, str(e)
+    line = {"phase": "train_refusal", "refused": refused,
+            "message": message, "launches": sum(launches().values())
+            - before, "card": card}
+    emit(line)
+    require(refused and "no backward pass" in message
+            and line["launches"] == 0,
+            "a pallas-backend Monarch layer under autograd did not refuse")
+    return line
+
+
+def _phase_train(dev) -> None:
+    """Phase 3i: training on the card.  (a) card vs CPU at 2 layers for
+    gpt2-medium (Monarch), granite-moe-1b-a400m (MoE) and mamba2-2.7b
+    (SSD): the card's steps first, the CPU's on a worker thread while the
+    card trains (b) gpt2-medium at full width and depth with its resumed
+    run; then the step's readings, with the CPU idle again, and (c) the
+    kernels' refusal of autograd.  The einsum backend: no kernel launches
+    in the phase."""
+    import concurrent.futures
+
+    import torch
+
+    from repro_torch import tree_to
+    from repro_torch.kernels import launches, reset_launches
+
+    card = _card_line()
+    reset_launches()
+    pending = []
+    with concurrent.futures.ThreadPoolExecutor(1) as cpu:
+        for arch in TRAIN_PARITY_ARCHS:
+            c, batch, p_gpu = _train_parity_setup(arch, dev)
+            on_card = _train_parity_side(c, p_gpu, batch)
+            pending.append((arch, c, on_card, cpu.submit(
+                _train_parity_side, c, tree_to(p_gpu, "cpu"), batch)))
+            del p_gpu
+            torch.cuda.empty_cache()
+        batches = _train_gpt2(dev, card)
+        for arch, c, on_card, on_cpu in pending:
+            _train_parity(arch, c, on_card, on_cpu.result(), card)
+    _train_readings(_train_gpt2_cfg(), batches[0], dev, card)
+    torch.cuda.empty_cache()
+    _train_refusal(dev, card)
+    counts = {k: v for k, v in launches().items() if v}
+    emit({"phase": "train_launches", "launches": counts, "card": card})
+    require(not counts, f"phase 3i launched kernels: {counts}")
+
+
 def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
     """A rank of phase 5's snapshots: the tp = 1 snapshot under
     ``tp1_dir`` restored on this mesh and served to the end (its finished
@@ -3081,6 +3463,13 @@ def main() -> int:
           "ptxas": {n: _ptxas_report(log)
                     for n, log in _build.BUILD_LOG.items()}})
     phase_done("1 build")
+
+    if "--train" in sys.argv[1:]:
+        # the training phase alone
+        _phase_train(dev)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "card": _card_line()})
+        return 0
 
     if "--serves" in sys.argv[1:]:
         # the profiled serves alone: float and quantized (timed serve and
@@ -4921,7 +5310,7 @@ def main() -> int:
     def d2s_select(path, leaf) -> bool:
         return any(s in path for s in D2S_MATMULS)
 
-    def d2s_both(params, what: str, every: int = 1):
+    def d2s_both(params, what: str, every: int = 1, select=d2s_select):
         """``convert_tree`` over ``params`` on the card (timed; a leaf's
         seconds run from its select call to the next leaf's) and on the CPU
         from the same dense tensors: with ``every`` > 1 the CPU projects
@@ -4935,7 +5324,7 @@ def main() -> int:
         def timed_select(path, leaf):
             torch.cuda.synchronize()
             stamps.append((path, time.perf_counter()))
-            return d2s_select(path, leaf)
+            return select(path, leaf)
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4949,7 +5338,7 @@ def main() -> int:
         t0 = time.perf_counter()
         if every == 1:
             conv_cpu, reps_cpu = convert_tree(tree_to(params, "cpu"),
-                                              d2s_select)
+                                              select)
             require([(r.name, r.dims) for r in reps]
                     == [(r.name, r.dims) for r in reps_cpu],
                     f"{what}: card and CPU converted other matrices")
@@ -5130,15 +5519,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # one nemotron-4-15b layer at full width (dense, fp32: the whole model
-    # would be 60 GB), projected on the card; the CPU checks every
-    # D2S_NEMOTRON_CPU_EVERY-th row of slices (the whole layer would take
-    # the CPU ~2 minutes)
+    # would be 60 GB), its D2S_NEMOTRON_MATMULS projected on the card; the
+    # CPU checks every D2S_NEMOTRON_CPU_EVERY-th row of slices
     cfg_nd = dataclasses.replace(get_config("nemotron-4-15b:dense"),
                                  n_layers=1, dtype="float32")
     gen_nd = torch.Generator(device=dev)
     gen_nd.manual_seed(0)
     d2s_both({"decoder": T.decoder_stack_init(gen_nd, cfg_nd)},
-             "nemotron-4-15b:dense, 1 layer", every=D2S_NEMOTRON_CPU_EVERY)
+             "nemotron-4-15b:dense, 1 layer, "
+             + "/".join(D2S_NEMOTRON_MATMULS),
+             every=D2S_NEMOTRON_CPU_EVERY,
+             select=lambda path, leaf: any(f"['{m}']" in path
+                                           for m in D2S_NEMOTRON_MATMULS))
     torch.cuda.empty_cache()
 
     # the float serves of phases 3 and 3c priced by each cost model: the
@@ -5210,6 +5602,13 @@ def main() -> int:
     # writes' determinism (§C 4); the serve_decode example at mamba2 ----
     _phase_families(dev)
     phase_done("3h Mamba2, hybrid, encoder-decoder and vision")
+
+    # -- 3i. training: card vs CPU at 2 layers (gpt2-medium, granite-moe,
+    # mamba2), gpt2-medium trained at full width and depth and resumed from
+    # its checkpoint, the kernels' refusal of autograd ----------------------
+    _phase_train(dev)
+    torch.cuda.empty_cache()
+    phase_done("3i training")
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")

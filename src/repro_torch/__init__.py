@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of ``repro``: Monarch-sparse transformers served on an
-NVIDIA Hopper GPU.
+"""PyTorch/CUDA port of ``repro``: Monarch-sparse transformers served and
+trained on an NVIDIA Hopper GPU.
 
 The package mirrors ``repro``'s module layout and public names, so each
 function has an obvious counterpart, but it imports neither JAX nor any
@@ -9,9 +9,12 @@ plain PyTorch version beside it (``kernels/monarch.py``, ``kernels/bdmm.py``,
 ``kernels/paged.py``).
 
 Entry points (``init_params``, ``params_from_numpy``, ``init_paged_pool``,
-``ContinuousBatchingEngine``) run on ``cuda`` unless the caller passes
-``device="cpu"``; without a GPU and without that explicit request they
-raise instead of silently dropping to the CPU.
+``ContinuousBatchingEngine``, the train state of
+``launch.steps.make_train_step`` and ``train.Trainer``) run on ``cuda``
+unless the caller passes ``device="cpu"``; without a GPU and without that
+explicit request they raise instead of silently dropping to the CPU.
+Training runs the kernels' einsum counterparts: the hand-written kernels
+have no backward pass and refuse autograd.
 """
 
 from __future__ import annotations
@@ -36,11 +39,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor leaf of a nested dict, with the
+    matching leaves of ``rest`` (nested dicts of the same keys) as its
+    further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_to(tree, device: DeviceLike = None):

@@ -5,9 +5,14 @@ Layout:  ``<dir>/step_<N:08d>/manifest.json`` + one ``<leaf_id>.npy`` per
 leaf, byte for byte the reference's, so that each package reads what the
 other wrote:
 
-* A state is a nested dict of leaves.  Leaf ids are the path keys joined
-  with ``__`` (``"root"`` for a bare leaf), in sorted key order, as
-  ``jax.tree_util`` flattens the same dicts.
+* A state is a nested dict of leaves, whose nodes may also be
+  NamedTuples (a train state's ``optim.AdamWState``).  Leaf ids are the
+  path keys joined with ``__`` (``"root"`` for a bare leaf), in sorted key
+  order, as ``jax.tree_util`` flattens the same dicts; a NamedTuple's
+  fields in field order, each as ``"." + name`` (``jax.tree_util``'s
+  ``GetAttrKey``), so a train state's optimizer leaves are
+  ``opt__.step``, ``opt__.mu__...`` and ``opt__.nu__...`` in both
+  packages.
 * The manifest records each leaf's shape, dtype name and the CRC32 of its
   bytes; the CRC is verified on load.
 * Atomic: written to ``step_<N>.tmp`` then renamed, so a crash mid-save
@@ -49,11 +54,21 @@ def _leaf_id(prefix: tuple) -> str:
     return "__".join(prefix) or "root"
 
 
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _leaves_with_paths(tree, prefix: tuple = ()) -> list:
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(_leaves_with_paths(tree[k], prefix + (k,)))
+        return out
+    if _is_namedtuple(tree):
+        out = []
+        for f in tree._fields:
+            out.extend(_leaves_with_paths(getattr(tree, f),
+                                          prefix + ("." + f,)))
         return out
     return [(_leaf_id(prefix), tree)]
 
@@ -62,6 +77,10 @@ def _unflatten(like, leaves: dict, prefix: tuple = ()):
     if isinstance(like, dict):
         return {k: _unflatten(v, leaves, prefix + (k,))
                 for k, v in like.items()}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(getattr(like, f), leaves,
+                                       prefix + ("." + f,))
+                            for f in like._fields))
     return leaves[_leaf_id(prefix)]
 
 

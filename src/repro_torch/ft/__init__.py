@@ -1,5 +1,6 @@
 """Fault tolerance of the port: heartbeats, supervisors, straggler
-detection and elastic remesh planning (host code)."""
+detection and elastic remesh planning (host code), and the gradients'
+int8 error-feedback compression (``ft.compression``)."""
 
 from repro_torch.ft.coordinator import (  # noqa: F401
     ElasticPlan,

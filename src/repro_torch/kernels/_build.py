@@ -61,6 +61,20 @@ def launches() -> dict[str, int]:
     return dict(LAUNCHES)
 
 
+def refuse_autograd(what: str, *ts) -> None:
+    """Raise when grad mode is on and an input requires grad.  The kernels
+    have no backward pass: on the card a wrapper fills its output through
+    ``ctypes``, so a gradient would silently stop there, and the plain
+    version on the CPU would differentiate where the card cannot.  Both
+    refuse, as the reference's ``pallas_call`` has no VJP.  Train on the
+    einsum backend (``MonarchSpec.backend = "einsum"``)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{what}: the hand-written kernel has no backward pass; train "
+            f"on the einsum backend")
+
+
 def build_dir() -> Path:
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:

@@ -301,6 +301,7 @@ def _launch(what: str, x: torch.Tensor, w: torch.Tensor,
 
 def bdmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (T, k, p) (any strides), w: (k, q, p) -> (T, k, q)."""
+    _build.refuse_autograd("bdmm", x, w)
     T, k, p = x.shape
     k2, q, p2 = w.shape
     if (k2, p2) != (k, p):
@@ -342,6 +343,7 @@ def bdmm_q(x: torch.Tensor, wq: torch.Tensor,
            scale: torch.Tensor) -> torch.Tensor:
     """x: (T, k, p) (any strides), wq: (k, q, p) int8 or (k, q, p/2)
     nibble-packed int4, scale: (k, 1, 1) fp32 -> (T, k, q) in x's dtype."""
+    _build.refuse_autograd("bdmm_q", x, wq, scale)
     T = x.shape[0]
     bits = _q_bits(x, wq, scale)
     q = wq.shape[1]

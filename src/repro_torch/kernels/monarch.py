@@ -315,6 +315,7 @@ def _launch_float(what: str, x, L, R, y, k, q, p, s, E: int) -> None:
 def monarch_fused(x: torch.Tensor, L: torch.Tensor,
                   R: torch.Tensor) -> torch.Tensor:
     """x: (T, din) -> (T, dout) with din = k*p, dout = q*s."""
+    _build.refuse_autograd("monarch_fused", x, L, R)
     k, q, p, s = _check_float("monarch_fused", x, L, R, 0)
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -333,6 +334,7 @@ def monarch_fused_experts(x: torch.Tensor, L: torch.Tensor,
     """E stacked products in one launch: x (E, T, k*p), L (E, k, q, p),
     R (E, q, s, k) -> (E, T, q*s), ``torch.equal`` to
     :func:`monarch_fused` of each expert."""
+    _build.refuse_autograd("monarch_fused_experts", x, L, R)
     k, q, p, s = _check_float("monarch_fused_experts", x, L, R, 1)
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -432,6 +434,7 @@ def monarch_fused_q(x: torch.Tensor, Lq: torch.Tensor, Ls: torch.Tensor,
                     Rq: torch.Tensor, Rs: torch.Tensor) -> torch.Tensor:
     """x: (T, k*p) -> (T, q*s) in x's dtype; Lq: (k, q, p[/2]) int8, Ls:
     (k, 1, 1) fp32, Rq: (q, s, k[/2]) int8, Rs: (q, 1, 1) fp32."""
+    _build.refuse_autograd("monarch_fused_q", x, Lq, Ls, Rq, Rs)
     dims = _check_quant("monarch_fused_q", x, Lq, Ls, Rq, Rs, 0)
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -452,6 +455,7 @@ def monarch_fused_q_experts(x: torch.Tensor, Lq: torch.Tensor,
     k, q, p[/2]), Ls (E, k, 1, 1), Rq (E, q, s, k[/2]), Rs (E, q, 1, 1) ->
     (E, T, q*s), ``torch.equal`` to :func:`monarch_fused_q` of each
     expert."""
+    _build.refuse_autograd("monarch_fused_q_experts", x, Lq, Ls, Rq, Rs)
     dims = _check_quant("monarch_fused_q_experts", x, Lq, Ls, Rq, Rs, 1)
     if not x.is_cuda:
         if x.device.type == "cpu":

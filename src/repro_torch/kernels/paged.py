@@ -389,6 +389,7 @@ def _span(q, k_pages, v_pages, page_table, start, span_len, window,
     a launch adds one to ``counter`` (``counter + "_q"`` for int8
     pages).  ``pps`` as in :func:`span_geometry` (chip_smoke.py's
     comparison of splits; the wrappers never pass it)."""
+    _build.refuse_autograd(counter, q, k_pages, v_pages, k_scales, v_scales)
     B, S, H, hd = q.shape
     P, pg, KV, hd2 = k_pages.shape
     if hd2 != hd or v_pages.shape != k_pages.shape or H % KV:

@@ -1,2 +1,2 @@
-"""Process-level launch of the port: the tensor-parallel mesh and the
-serving steps."""
+"""Process-level launch of the port: the tensor-parallel mesh, the train
+step and the serving steps."""

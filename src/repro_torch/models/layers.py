@@ -1,7 +1,8 @@
 """Transformer building blocks, attention-stack subset (port of
 ``repro.models.layers``): norms, RoPE, GQA attention over no cache, the
 ring or a paged KV pool (KV-chunked without a cache where the config
-asks), FFNs, mixture-of-experts FFNs, embedding and unembedding.
+asks), FFNs, mixture-of-experts FFNs, embedding, unembedding and the
+training loss's cross-entropy.
 
 Every parameterized matmul routes through ``core.linear``, so Monarch is a
 global switch (``cfg.monarch``).  Numerics follow the reference where the
@@ -795,11 +796,24 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return logits
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of ``labels`` under
+    ``logits`` (..., V); with ``mask``, the masked sum over the mask's sum
+    (at least 1)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
 __all__ = [
     "norm_init", "norm_apply", "rope",
     "attention_init", "attention_apply", "attention_cache_init",
     "paged_cache_init", "paged_write_targets", "last_writes",
     "causal_mask",
     "ffn_init", "ffn_apply", "moe_init", "moe_apply", "stack_trees",
-    "embedding_init", "embed", "unembed", "GLOBAL_WINDOW",
+    "embedding_init", "embed", "unembed", "cross_entropy", "GLOBAL_WINDOW",
 ]

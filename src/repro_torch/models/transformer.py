@@ -8,7 +8,8 @@ reference scans that axis, the port loops over it.
 
 Public API:
   init_params(cfg, seed, device)                  -> params
-  forward(params, batch, cfg)                     -> (logits, aux)
+  forward(params, batch, cfg, train=True)         -> (logits, aux)
+  loss_fn(params, batch, cfg)                     -> (loss, aux)
   init_decode_cache(cfg, batch, max_len, device)  -> cache (the ring and
                                                      the Mamba states)
   decode_step(params, tokens, cache, cfg, enc_out=None) -> (logits, cache)
@@ -38,8 +39,11 @@ block) and the stubbed vision frontend (``patch_embeds`` prepended to the
 text and cut off again).  Cross-attention recomputes its K and V from
 ``enc_out`` at every call, the decode step's included, as the reference
 does; with ``enc_out=None`` (the engines' text stream) it attends the
-block's own tokens, causally, as the reference's does.  Training is not
-ported.
+block's own tokens, causally, as the reference's does.
+
+Training (``forward(train=True)``, ``loss_fn``) checkpoints each layer,
+or each hybrid group, as ``cfg.remat`` asks, where the reference
+``jax.checkpoint``s its scan bodies (``_maybe_remat``).
 """
 
 from __future__ import annotations
@@ -190,6 +194,46 @@ def decoder_stack_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``:
+    keep the outputs of products with no batch dimension (``mm`` /
+    ``addmm``: the dense projections, the LM head), recompute everything
+    else, the batched products included (the Monarch stages and the
+    attention einsums run as ``bmm``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _maybe_remat(fn, cfg: ModelConfig, train: bool):
+    """The reference's ``_maybe_remat``: ``fn`` under activation
+    checkpointing as ``cfg.remat`` asks -- ``"full"`` keeps only its
+    inputs and recomputes the rest in the backward pass, ``"dots"`` keeps
+    the unbatched products' outputs too (:func:`_dots_policy`); anything
+    else, ``train=False`` or grad mode off leaves ``fn`` as it is.  It
+    changes memory, not values."""
+    if not train or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     preserve_rng_state=False)
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     preserve_rng_state=False,
+                                     context_fn=_dots_context)
+    return fn
+
+
 def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                         cache: Optional[dict] = None, pos=None,
                         page_table=None, span_len=None, write_start=None,
@@ -202,24 +246,40 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     steps, which drop it as the reference's jitted steps do) computes no
     loss and returns an empty ``aux``.  A cache (the ring and the Mamba
     states, or a paged pool) is updated in place and returned as
-    given."""
+    given.  Without a cache and with ``train``, each attention or Mamba
+    layer, and each hybrid group (its Mamba layers and the shared block),
+    is checkpointed as ``cfg.remat`` asks (:func:`_maybe_remat`), where
+    the reference remats its scan bodies."""
     aux = ({"lb_loss": torch.zeros((), dtype=torch.float32,
                                    device=x.device)} if aux_loss else None)
+    remat = train and cache is None
     if cfg.layer_kind == "attn":
+        def block(h, p, win):
+            la = None if aux is None else {"lb_loss": torch.zeros_like(
+                aux["lb_loss"])}
+            h = attn_block_apply(p, h, cfg, window=win, enc_out=enc_out,
+                                 bidir=bidir, plan=plan, aux=la)
+            return h, None if la is None else la["lb_loss"]
+
+        block = _maybe_remat(block, cfg, remat)
         for i, win in enumerate(layer_windows(cfg)):
             p = layer_params(params["layers"], i)
-            c = layer_params(cache["layers"], i) if cache is not None \
-                else None
+            if cache is None:
+                x, lb = block(x, p, win)
+                if aux is not None:
+                    aux["lb_loss"] = aux["lb_loss"] + lb
+                continue
             x = attn_block_apply(
-                p, x, cfg, window=win, cache=c, pos=pos,
-                page_table=page_table, span_len=span_len,
+                p, x, cfg, window=win, cache=layer_params(cache["layers"], i),
+                pos=pos, page_table=page_table, span_len=span_len,
                 write_start=write_start, enc_out=enc_out, bidir=bidir,
                 plan=plan, aux=aux)
         if aux is not None:
             aux["lb_loss"] = aux["lb_loss"] / cfg.n_layers
     elif cfg.layer_kind == "mamba":
+        layer = _maybe_remat(_mamba_layer, cfg, remat)
         for i in range(cfg.n_layers):
-            x = _mamba_layer(
+            x = layer(
                 layer_params(params["layers"], i), x, cfg,
                 None if cache is None else layer_params(cache["layers"], i))
     else:
@@ -227,16 +287,21 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         # (global attention) over that group's own ring; then the tail
         n_groups, _ = hybrid_groups(cfg)
         shared = params["shared_attn"]
-        for gi in range(n_groups):
-            gp = layer_params(params["groups"], gi)
-            gc = None if cache is None else layer_params(cache["groups"], gi)
+
+        def group(h, gp, gc):
             for j in range(cfg.shared_attn_every):
-                x = _mamba_layer(
-                    layer_params(gp, j), x, cfg,
+                h = _mamba_layer(
+                    layer_params(gp, j), h, cfg,
                     None if gc is None else layer_params(gc["mamba"], j))
-            x = attn_block_apply(
-                shared, x, cfg, window=None,
+            return attn_block_apply(
+                shared, h, cfg, window=None,
                 cache=None if gc is None else {"attn": gc["attn"]}, pos=pos)
+
+        group = _maybe_remat(group, cfg, remat)
+        for gi in range(n_groups):
+            x = group(x, layer_params(params["groups"], gi),
+                      None if cache is None
+                      else layer_params(cache["groups"], gi))
         for i in range(hybrid_groups(cfg)[1]):
             x = _mamba_layer(
                 layer_params(params["tail"], i), x, cfg,
@@ -307,6 +372,19 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True):
         x = x[:, n_front:, :]
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
     return L.unembed(params["embedding"], x, cfg), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """The training loss of a batch {"tokens", "labels"[, "loss_mask"],
+    the frontends' inputs}: the masked next-token cross-entropy of
+    ``forward(train=True)`` (activation checkpointing as ``cfg.remat``
+    asks), plus 0.01 x the load-balance loss for an MoE model.  Returns
+    (loss, aux)."""
+    logits, aux = forward(params, batch, cfg, train=True)
+    loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux["lb_loss"]
+    return loss, aux
 
 
 # ---- serving through the ring cache (the legacy ServeEngine) --------------
@@ -469,8 +547,8 @@ def paged_mixed_step(params: dict, tokens: torch.Tensor, start: torch.Tensor,
 
 
 __all__ = [
-    "init_params", "forward", "init_decode_cache", "decode_step", "prefill",
-    "hybrid_groups",
+    "init_params", "forward", "loss_fn", "init_decode_cache", "decode_step",
+    "prefill", "hybrid_groups",
     "prefill_with_cache", "init_paged_pool", "paged_mixed_step",
     "cow_copy_pages", "decoder_stack_init", "decoder_stack_apply",
     "attn_block_init", "attn_block_apply", "layer_params", "layer_windows",

@@ -473,20 +473,29 @@ def test_fused_fits_dispatch_is_unchanged():
 def blockwise_monarch(x, L, R, T):
     """The fused kernel's split done in plain torch, block by block as
     fused_geometry lays them out: each block computes u_i from L[:, i, :]
-    alone, rounds it to x's dtype, and writes its slab from R[i]'s rows."""
+    alone, rounds it to x's dtype, and writes its slab from R[i]'s rows.
+    The blocks of one token tile run as one batched product (a batch entry
+    a block's q-block), each entry reading only its own ``L[:, i, :]`` and
+    ``R[i, c0:c0+ns]``; entries are grouped by slab width."""
     k, q, p = L.shape
     s = R.shape[1]
     geo = fused_geometry(tuple(L.shape), tuple(R.shape), T,
                          x.element_size(), 8 * L.element_size())
     y = torch.full((T, q * s), float("nan"), dtype=x.dtype)
+    groups: dict = {}
     for t0, nt, i, c0, ns in fused_blocks(geo, q, s, T):
+        groups.setdefault((t0, nt, ns), []).append((i, c0))
+    Lf, Rf = L.float(), R.float()
+    for (t0, nt, ns), blocks in groups.items():
+        ii = torch.tensor([i for i, _ in blocks])
+        cols = torch.tensor([c0 for _, c0 in blocks])[:, None] + \
+            torch.arange(ns)                                  # (n, ns)
         xt = x[t0:t0 + nt].float().reshape(nt, k, p)
-        u = torch.einsum("tkp,kqp->tkq", xt, L[:, i:i + 1, :].float())
+        u = torch.einsum("tkp,nkp->ntk", xt, Lf[:, ii, :].transpose(0, 1))
         u = u.to(x.dtype).float()
-        yb = torch.einsum("tqk,qsk->tqs", u.transpose(1, 2),
-                          R[i:i + 1, c0:c0 + ns].float())
-        y[t0:t0 + nt, i * s + c0:i * s + c0 + ns] = yb.reshape(nt, ns).to(
-            x.dtype)
+        yb = torch.einsum("ntk,nsk->nts", u, Rf[ii[:, None], cols])
+        y[t0:t0 + nt, (ii[:, None] * s + cols).reshape(-1)] = yb.permute(
+            1, 0, 2).reshape(nt, -1).to(x.dtype)
     return y
 
 

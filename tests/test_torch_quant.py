@@ -30,6 +30,7 @@ from repro.kernels.monarch import monarch_fused_q as jmonarch_fused_q
 from repro.models import decode_path as JDP
 from repro.models import fuse as JF
 from repro.models import transformer as JT
+from _torch_numpy_params import numpy_params
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import linear as tlin
@@ -70,6 +71,18 @@ def _pair(a: np.ndarray, dtype: str = "float32"):
 def _to_torch(tree):
     return params_from_numpy(jax.tree_util.tree_map(np.asarray, tree),
                              device="cpu")
+
+
+# the reference's forward jitted (cfg and train static): one compile
+# instead of one a primitive
+_jforward = jax.jit(JT.forward, static_argnums=(2, 3))
+
+
+def _jparams(jcfg, seed):
+    """The reference's parameter tree drawn with numpy at ``seed``
+    (``tests/_torch_numpy_params.py``): its layout and scales, without
+    ``init_params``' eager compiles."""
+    return jax.tree_util.tree_map(jnp.asarray, numpy_params(jcfg, seed))
 
 
 def _assert_trees_equal(got, want):
@@ -308,7 +321,7 @@ def test_fuse_model_tree_equals_reference(variant):
     changes = ({} if variant == "mha_gelu"
                else dict(n_kv_heads=2, ffn_type="swiglu"))
     jc, _ = _pair_cfg(**changes)
-    jp = JT.init_params(jax.random.PRNGKey(1), jc)
+    jp = _jparams(jc, 1)
     got = TF.fuse_model(_to_torch(jp))
     want = JF.fuse_model(jp)
     _assert_trees_equal(got, want)
@@ -347,7 +360,7 @@ def test_prepare_decode_params_matches_reference(bits):
         jc.monarch, backend="pallas"))
     tc = dataclasses.replace(tc, monarch=dataclasses.replace(
         tc.monarch, backend="pallas"))
-    jp = JT.init_params(jax.random.PRNGKey(3), jc)
+    jp = _jparams(jc, 3)
     want = JDP.prepare_decode_params(jp, jc, fuse=True, bits=bits)
     got = TDP.prepare_decode_params(_to_torch(jp), tc, fuse=True, bits=bits)
     _assert_trees_equal(got, want)
@@ -355,7 +368,7 @@ def test_prepare_decode_params_matches_reference(bits):
     assert TDP.decode_weight_bytes(got) < TDP.decode_weight_bytes(
         _to_torch(jp))
     toks = np.random.default_rng(14).integers(0, jc.vocab, (2, 6))
-    jl, _ = JT.forward(want, {"tokens": jnp.asarray(toks)}, jc, train=False)
+    jl, _ = _jforward(want, {"tokens": jnp.asarray(toks)}, jc, False)
     tl, _ = TT.forward(got, {"tokens": torch.from_numpy(toks)}, tc,
                        train=False)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
@@ -367,7 +380,7 @@ def test_params_from_numpy_carries_a_quantized_tree():
     values, and the port's own quantization of the float tree gives the
     same tree."""
     jc, tc = _pair_cfg()
-    jp = JT.init_params(jax.random.PRNGKey(4), jc)
+    jp = _jparams(jc, 4)
     jqp = JDP.prepare_decode_params(jp, jc, fuse=True, bits=8)
     got = _to_torch(jqp)
     _assert_trees_equal(got, jqp)
@@ -397,7 +410,7 @@ def test_engine_dense_fallback_and_einsum_match_reference(quantize):
     import repro_torch.serving as tserving
 
     jc, tc = _pair_cfg()
-    jp = JT.init_params(jax.random.PRNGKey(0), jc)
+    jp = _jparams(jc, 0)
     tp = _to_torch(jp)
     rng = np.random.default_rng(10)
     prompts = [rng.integers(0, jc.vocab, n) for n in (3, 24, 5, 18, 2)]

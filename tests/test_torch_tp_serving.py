@@ -5,7 +5,8 @@ The reference's own contract (tests/test_tp_serving.py) is that greedy
 tokens at tp > 1 equal tp = 1.  Its tp > 1 engine gives no tokens on this
 host (the vocab-sharded embedding gather raises under jax 0.9), so the
 port's tp = 2 and tp = 4 engines are held against the reference's tp = 1
-engine on the same converted params, in the reference's ``tp_test`` shape
+engine on the same params (numpy, in the reference's layout:
+``tests/_torch_numpy_params.py``), in the reference's ``tp_test`` shape
 (d = 128, 2 layers, 8/8 heads, d_ff = 256, vocab 512), with Monarch and
 with dense linears: a plain trace, a tiny pool that preempts, a shared
 prefix that forks a page copy-on-write, and int8 KV pages.
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 import _torch_tp_worker as W
+from _torch_numpy_params import numpy_params
 import repro.serving as jserving
 from repro.core.linear import MonarchSpec as JSpec
 from repro.models import transformer as JT
@@ -44,6 +46,7 @@ SHAPE = dict(d_model=128, n_layers=2, n_heads=8, n_kv_heads=8, d_ff=256,
              vocab=512, dtype="float32")
 LOGITS = dict(rtol=1e-5, atol=1e-5)
 WORLD_TIMEOUT_S = 240
+REFERENCE_THREADS = 4
 
 
 def _configs(name, monarch, **over):
@@ -138,39 +141,67 @@ JOBS = {
 WHOLE_POOL = ("gqa_tp4", "dense_gqa_tp4")
 
 
-def _np_params(jcfg, seed):
-    return jax.tree_util.tree_map(
-        np.asarray, JT.init_params(jax.random.PRNGKey(seed), jcfg))
-
-
 @pytest.fixture(scope="module")
 def setup():
-    out = {}
+    """Each job's configs, numpy params in the reference's layout (drawn
+    once a (config, seed): ``tests/_torch_numpy_params.py``) and traces."""
+    out, drawn = {}, {}
     for job, ((jcfg, tcfg), seed, names, tp) in JOBS.items():
+        if (jcfg, seed) not in drawn:
+            drawn[jcfg, seed] = numpy_params(jcfg, seed)
         traces = _traces(tcfg.vocab)
         names = names or tuple(traces)
-        out[job] = (jcfg, tcfg, _np_params(jcfg, seed),
+        out[job] = (jcfg, tcfg, drawn[jcfg, seed],
                     {n: traces[n] for n in names}, tp)
     return out
 
 
+def _reference_trace(jcfg, jp, tr):
+    eng = jserving.ContinuousBatchingEngine(jcfg, jp, **tr["engine"])
+    return {"tokens": W.drive(eng, jserving.SamplingParams, tr),
+            "stats": {k: eng.stats[k] for k in W.STAT_KEYS},
+            "n_pages": eng.pool_host.n_pages}
+
+
+_jmixed_step = jax.jit(JT.paged_mixed_step, static_argnums=6)
+
+
+def _reference_step(jcfg, jp):
+    st = _step_inputs()
+    pool = JT.init_paged_pool(jcfg, st["n_pages"], st["page_size"])
+    lg, _ = _jmixed_step(jp, st["tokens"], st["start"], st["span"],
+                         st["table"], pool, jcfg)
+    return np.asarray(lg)
+
+
 def _reference(setup):
     """The JAX reference's tp = 1 engine on every job's traces, and one
-    mixed step's logits."""
-    out = {}
+    mixed step's logits.  A trace of a (config, params, trace) already
+    run for another job is reused; the rest run on REFERENCE_THREADS
+    threads (each its own engine; XLA compiles outside the GIL)."""
+    runs, tasks = {}, {}
     for job, (jcfg, _, np_params, traces, _) in setup.items():
-        jp = jax.tree_util.tree_map(jax.numpy.asarray, np_params)
-        res = out[job] = {}
-        for name, tr in traces.items():
-            eng = jserving.ContinuousBatchingEngine(jcfg, jp, **tr["engine"])
-            res[name] = {"tokens": W.drive(eng, jserving.SamplingParams, tr),
-                         "stats": {k: eng.stats[k] for k in W.STAT_KEYS},
-                         "n_pages": eng.pool_host.n_pages}
-        st = _step_inputs()
-        pool = JT.init_paged_pool(jcfg, st["n_pages"], st["page_size"])
-        lg, _ = JT.paged_mixed_step(jp, st["tokens"], st["start"],
-                                    st["span"], st["table"], pool, jcfg)
-        res["step_logits"] = np.asarray(lg)
+        for name in (*traces, "step_logits"):
+            key = (jcfg, id(np_params), name)
+            runs[job, name] = key
+            tasks.setdefault(key, (jcfg, np_params, traces.get(name)))
+    device = {}
+    for jcfg, np_params, _ in tasks.values():
+        if id(np_params) not in device:
+            device[id(np_params)] = jax.tree_util.tree_map(
+                jax.numpy.asarray, np_params)
+
+    def run(key):
+        jcfg, np_params, tr = tasks[key]
+        jp = device[id(np_params)]
+        return (_reference_step(jcfg, jp) if tr is None
+                else _reference_trace(jcfg, jp, tr))
+
+    with concurrent.futures.ThreadPoolExecutor(REFERENCE_THREADS) as pool:
+        done = dict(zip(tasks, pool.map(run, tasks)))
+    out: dict = {}
+    for (job, name), key in runs.items():
+        out.setdefault(job, {})[name] = done[key]
     return out
 
 
