@@ -256,6 +256,19 @@ Phases, each printed as one JSON object per line:
               (B7), and their tp = 2 snapshot (rank 0 writes the gathered
               pages) continued at tp = 1 on the card (B3), both with the
               uninterrupted tp = 1 tokens
+  5e. tp families  every family at tp = 2 on the two ranks, each held to
+              its tp = 1 run on the card: granite-moe-1b-a400m (bf16, a
+              reading; fp32) and qwen2-moe-a2.7b (fp32; int8 factors with
+              fused projections) at full width and depth through the
+              engine with expert parallelism (routes, tokens and every
+              step's logits; each rank's expert-batched B1/B4 once a
+              projection a layer a step over its n_slots / 2 slots, half
+              tp = 1's blocks; B7 every layer; no dense fallback), and
+              mamba2-2.7b, zamba2-7b and seamless-m4t-large-v2 at fp32
+              through the serving steps (tokens, prefill and decode
+              logits, the Mamba states put back together; zamba2's
+              whole in_proj on B2); collectives a step and each rank's
+              peak memory (``--tp-families`` runs the build and 5e alone)
 
 It exits non-zero on the first failed check, and when a rank fails.  Each
 phase ends with its seconds (``phase_seconds``).  The
@@ -454,6 +467,12 @@ PROFILED_SHARE = 0.9
 WITNESS_READINGS = 3
 # ranks of the tensor-parallel phase: processes that share the one card
 TP = 2
+# phase 5e's MoE engine traces: (requests, shortest and longest prompt,
+# seed), greedy, TPF_NEW new tokens each; its serving steps' batch, prompt
+# (token by token), new tokens and encoder frames
+TPF_PROMPTS = (4, 16, 64, 12)
+TPF_NEW = 8
+TPF_STEPS = dict(batch=4, prompt=16, new=8, frames=64)
 # B1's and B2's call sets at phase 3h's configs (2n): (din, dout) at the
 # paper policy; B1 (fused) ...
 FAMILY_FUSED = {"mamba2_in_proj_s661": (2560, 10576),
@@ -3398,6 +3417,397 @@ def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
             "req_ids": [r.req_id for r in reqs]}
 
 
+# -- phase 5e: every family at tp = 2 on the one card ----------------------
+
+@contextlib.contextmanager
+def _recording_expert_launches(into: list):
+    """Every expert-batched B1/B4 launch's (experts, blocks an expert): the
+    ``E`` and ``grid`` of its arguments (``kernels.monarch._launch_args``
+    wrapped for the block; a launch's blocks are ``E * grid``)."""
+    from repro_torch.kernels import monarch as KM
+
+    args_of = KM._launch_args
+
+    def rec(what, *a, **kw):
+        args = args_of(what, *a, **kw)
+        if what.endswith("_experts"):
+            into.append((int(args[14]), int(args[9])))
+        return args
+
+    KM._launch_args = rec
+    try:
+        yield into
+    finally:
+        KM._launch_args = args_of
+
+
+@contextlib.contextmanager
+def _counting_collectives(into: dict):
+    """Every device collective the block issues (``all_reduce``,
+    ``all_gather``: ``sharding/api.py``'s two), counted by name."""
+    import torch.distributed as dist
+
+    calls = {name: getattr(dist, name) for name in ("all_reduce",
+                                                    "all_gather")}
+
+    def counted(name):
+        def call(*a, **kw):
+            into[name] = into.get(name, 0) + 1
+            return calls[name](*a, **kw)
+        return call
+
+    for name in calls:
+        setattr(dist, name, counted(name))
+    try:
+        yield into
+    finally:
+        for name, fn in calls.items():
+            setattr(dist, name, fn)
+
+
+def _tpf_engine(mesh, dev, spec: dict) -> dict:
+    """An MoE job of phase 5e on this rank (``mesh=None``: the tp = 1 run
+    on the card): the full params from their seed, the continuous-batching
+    engine over ``spec["prompts"]`` with eager steps (the routes are
+    recorded; a mesh's steps are eager anyway), every step's logits, the
+    routes of every MoE call, the launches and each expert-batched
+    launch's experts and blocks."""
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = spec["cfg"]
+    eng = ContinuousBatchingEngine(
+        cfg, T.init_params(cfg, seed=spec["seed"], device=dev), mesh=mesh,
+        **({} if mesh else {"device": dev}), **spec["engine"])
+    eng.step_graphs = None
+    lead = mesh is None or mesh.rank == 0
+    logits, routes, experts, coll = [], [], [], {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _recording_routes(routes), _recording_expert_launches(experts), \
+            _counting_collectives(coll):
+        reqs = _drive(eng, [p.copy() for p in spec["prompts"]], 0,
+                      spec["new"], spec["what"], logits)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eng.kv.check_shards()
+    slots = eng.params["decoder"]["layers"]["moe"]["experts"]
+    leaf = next(iter(_flat(slots).values()))
+    return {"tokens": [list(r.output_tokens) for r in reqs],
+            "stats": {k: eng.stats[k] for k in (
+                "mixed_steps", "kernel_dispatches", "dense_fallbacks")},
+            "launches": launches(), "seconds": dt, "collectives": coll,
+            "expert_launches": experts, "local_slots": int(leaf.shape[1]),
+            "kv_shard": eng.kv.kv_shard,
+            "logits": logits if lead else [],
+            "routes": routes if lead else []}
+
+
+def _tpf_steps(mesh, dev, spec: dict) -> dict:
+    """A serving-steps job of phase 5e on this rank (``mesh=None``: the
+    tp = 1 run): ``make_prefill_step`` on the prompts (and frames), then
+    the prompts token by token through ``make_decode_step`` (with
+    ``enc_out`` from ``_encode`` for an encoder-decoder model) and
+    ``spec["new"]`` greedy tokens; every decode step's logits, the launches
+    of each part, and the first and last Mamba layers' states."""
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.steps import (_compute_cast, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.params import shard_params, tp_plan
+
+    cfg = spec["cfg"]
+    params = T.init_params(cfg, seed=spec["seed"], device=dev)
+    plan = None
+    if mesh is not None:
+        plan = tp_plan(params, cfg, mesh)
+        params = shard_params(params, plan)
+    B, S, new = spec["batch"], spec["prompt"], spec["new"]
+    gen = torch.Generator().manual_seed(spec["seed"] + 1)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen).to(dev)
+    batch = {"tokens": toks}
+    if cfg.encdec:
+        batch["enc_embeds"] = torch.randn(
+            (B, spec["frames"], cfg.d_model), generator=gen).to(dev)
+    lead = mesh is None or mesh.rank == 0
+    out: dict = {"layers": cfg.n_layers}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    pre = make_prefill_step(cfg, plan)(params, batch)
+    enc_out = (T._encode(_compute_cast(params, cfg), batch, cfg, plan=plan)
+               if cfg.encdec else None)
+    torch.cuda.synchronize()
+    out.update(prefill_seconds=time.perf_counter() - t0,
+               prefill_launches=_counted())
+    step = make_decode_step(cfg, plan)
+    cache = T.init_decode_cache(cfg, B, S + new, device=dev, plan=plan)
+    logits, tokens, coll = [], [], {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with _counting_collectives(coll):
+        for t in range(S):
+            lg, _ = step(params, toks[:, t].contiguous(), cache, enc_out)
+            logits.append(lg[:, :cfg.vocab].cpu() if lead else None)
+        for i in range(new):
+            tok = torch.argmax(lg[:, :cfg.vocab], dim=-1).to(torch.int32)
+            tokens.append(tok.cpu())
+            if i < new - 1:
+                lg, _ = step(params, tok, cache, enc_out)
+                logits.append(lg[:, :cfg.vocab].cpu() if lead else None)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    states = {}
+    for path, leaf in _flat(cache).items():
+        if path.endswith(("conv", "ssm")):
+            flat = leaf.reshape(-1, *leaf.shape[-4 if path.endswith("ssm")
+                                                 else -3:])
+            states[path] = torch.stack([flat[0], flat[-1]]).cpu()
+    out.update(decode_seconds=dt, decode_steps=S + new - 1,
+               collectives=coll,
+               launches=launches(), tokens=torch.stack(tokens, 1).tolist(),
+               prefill=pre[:, :cfg.vocab].cpu() if lead else None,
+               logits=[x for x in logits if x is not None], states=states)
+    return out
+
+
+def _tpf_rank(mesh, jobs: dict) -> dict:
+    """One rank of phase 5e (``mesh=None``: the tp = 1 runs on the card),
+    each job with the card's peak memory while it ran."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    out = {}
+    for job, spec in jobs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = _tpf_engine if spec["kind"] == "engine" else _tpf_steps
+        out[job] = run(mesh, dev, spec)
+        out[job]["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            dev)
+    return out
+
+
+def _tpf_jobs() -> dict:
+    """Phase 5e's jobs: the MoE configs through the engine (granite-moe at
+    bf16 and fp32, qwen2-moe at fp32 and with int8 factors and fused
+    projections), the Mamba, hybrid and encoder-decoder stacks through
+    the serving steps at fp32; every one at full width and depth."""
+    from repro_torch.configs import get_config
+
+    jobs = {}
+    for name, arch, dtype, opts in (
+            ("granite_moe_bf16", "granite-moe-1b-a400m", "bfloat16", {}),
+            ("granite_moe_fp32", "granite-moe-1b-a400m", "float32", {}),
+            ("qwen2_moe_fp32", "qwen2-moe-a2.7b", "float32", {}),
+            ("qwen2_moe_int8_fused", "qwen2-moe-a2.7b", "float32",
+             dict(quantize="int8", fuse_projections=True))):
+        cfg = dataclasses.replace(_on(get_config(arch)), dtype=dtype)
+        jobs[name] = {"kind": "engine", "cfg": cfg, "seed": 3,
+                      "engine": {**SERVE_KW, "max_len": 256, **opts},
+                      "prompts": _serve_prompts(cfg.vocab, *TPF_PROMPTS),
+                      "new": TPF_NEW, "what": f"tp families {name}"}
+    for name, arch in (("mamba2_steps", "mamba2-2.7b"),
+                       ("zamba2_steps", "zamba2-7b"),
+                       ("seamless_steps", "seamless-m4t-large-v2")):
+        cfg = dataclasses.replace(_on(get_config(arch)), dtype="float32")
+        jobs[name] = {"kind": "steps", "cfg": cfg, "seed": 3,
+                      **TPF_STEPS}
+    return jobs
+
+
+def _rel_max(a: list, b: list) -> float:
+    require(len(a) == len(b) and all(x.shape == y.shape
+                                     for x, y in zip(a, b)),
+            "other steps than tp = 1")
+    return max(_rel(x, y) for x, y in zip(a, b))
+
+
+def _tpf_engine_lines(name: str, spec: dict, base: dict,
+                      rs: list) -> None:
+    """Phase 5e's line of an MoE job: the ranks against the card's tp = 1
+    run.  fp32: every route identical (a difference only at a printed
+    near tie, as phase 3g holds the card to the CPU), then the tokens and
+    every step's logits within PARITY_REL_TOL; bf16: a reading.  Every
+    rank: one expert-batched launch a projection a layer a step over its
+    n_slots / 2 slots, half the tp = 1 blocks in all, B7 every layer and
+    step, no unsharded span launch and no dense fallback."""
+    cfg = spec["cfg"]
+    toks = rs[0]["tokens"]
+    steps = rs[0]["stats"]["mixed_steps"]
+    routes = _route_check(rs[0]["routes"], base["routes"],
+                          f"tp families {name}") \
+        if cfg.dtype == "float32" else None
+    flipped = bool(routes and routes["differences"])
+    flat = [(a, b) for oa, ob in zip(toks, base["tokens"])
+            for a, b in zip(oa, ob)]
+    line = {"phase": "tp_families", "job": name, "model": cfg.name,
+            "dtype": cfg.dtype, "tp": TP, "layers": cfg.n_layers,
+            "cut": None, "engine": {k: v for k, v in spec["engine"].items()
+                                    if k in ("quantize",
+                                             "fuse_projections")},
+            "tokens": toks, "tp1_tokens": base["tokens"],
+            "identical_to_tp1": toks == base["tokens"],
+            "token_agreement": sum(a == b for a, b in flat)
+            / max(len(flat), 1),
+            "ranks_identical": all(r["tokens"] == toks for r in rs),
+            "stats": rs[0]["stats"], "tp1_stats": base["stats"],
+            "route_flip": flipped,
+            "routes": None if routes is None else {
+                "calls": routes["calls"],
+                "max_prob_diff": routes["max_prob_diff"],
+                "n_differences": len(routes["differences"]),
+                "differences": routes["differences"][:8]},
+            "per_rank": [{"local_slots": r["local_slots"],
+                          "kv_shard": r["kv_shard"],
+                          "seconds": r["seconds"],
+                          "collectives_per_step": {
+                              k: v / steps for k, v in
+                              r["collectives"].items()},
+                          "max_memory_allocated": r["max_memory_allocated"],
+                          "launches_per_step": {
+                              k: v / steps for k, v in r["launches"].items()
+                              if v}} for r in rs],
+            "tp1_seconds": base["seconds"],
+            "tp1_max_memory_allocated": base["max_memory_allocated"]}
+    if cfg.dtype == "float32":
+        line["max_step_rel_err"] = _rel_max(rs[0]["logits"], base["logits"])
+        line["rel_tol"] = PARITY_REL_TOL
+    else:
+        line["note"] = "bf16: a reading, the all-reduce rounds once in fp32"
+    quant = "quantize" in spec["engine"]
+    expert_k = "monarch_fused_q_experts" if quant else "monarch_fused_experts"
+    n_proj = 2 if spec["engine"].get("fuse_projections") else 3
+    E = cfg.moe.n_slots
+    blocks1 = sum(e * g for e, g in base["expert_launches"])
+    line["expert_blocks"] = {"tp1": blocks1, "per_rank": [
+        sum(e * g for e, g in r["expert_launches"]) for r in rs]}
+    emit(line)
+    require(line["ranks_identical"], f"tp families {name}: the ranks' "
+            f"tokens differ")
+    for r in rs:
+        c = r["launches"]
+        require(r["stats"] == rs[0]["stats"], f"tp families {name}: the "
+                f"ranks' counters differ")
+        require(r["local_slots"] == E // TP and all(
+            e == E // TP for e, _ in r["expert_launches"])
+            and len(r["expert_launches"]) == c[expert_k]
+            and c[expert_k] == n_proj * cfg.n_layers * steps
+            and 2 * sum(e * g for e, g in r["expert_launches"]) == blocks1
+            and c["paged_attention_span_sharded"] == cfg.n_layers * steps
+            and c["paged_attention_span"] == 0
+            and r["stats"]["dense_fallbacks"] == 0,
+            f"tp families {name}: launches {c} over {steps} steps, expert "
+            f"launches {r['expert_launches'][:4]}... (tp = 1 blocks "
+            f"{blocks1})")
+    if cfg.dtype == "float32":
+        require(toks == base["tokens"] or flipped, f"tp families {name}: "
+                f"tokens differ from tp = 1 with no route difference")
+        require(flipped or line["max_step_rel_err"] <= PARITY_REL_TOL,
+                f"tp families {name}: step logits "
+                f"{line['max_step_rel_err']} apart")
+        require(rs[0]["stats"] == base["stats"] or flipped,
+                f"tp families {name}: counters differ from tp = 1")
+
+
+def _tpf_steps_lines(name: str, spec: dict, base: dict, rs: list) -> None:
+    """Phase 5e's line of a serving-steps job: tokens identical to the
+    card's tp = 1 run, the prefill's and every decode step's fp32 logits
+    within PARITY_REL_TOL, the first and last Mamba layers' states put
+    back together within PARITY_REL_TOL; zamba2's in_proj staged (B2, two
+    launches a Mamba layer a step) at every tp."""
+    import torch
+
+    cfg = spec["cfg"]
+    toks = rs[0]["tokens"]
+    states = {}
+    gn = 0 if cfg.ssm is None else cfg.ssm.n_groups * cfg.ssm.d_state
+    for path, want in base["states"].items():
+        if path.endswith("conv"):
+            got = torch.cat([*(r["states"][path][..., :-2 * gn] for r in rs),
+                             rs[0]["states"][path][..., -2 * gn:]], -1)
+        else:
+            got = torch.cat([r["states"][path] for r in rs], -3)
+        states[path] = _rel(got, want)
+    steps = rs[0]["decode_steps"]
+    line = {"phase": "tp_families", "job": name, "model": cfg.name,
+            "dtype": cfg.dtype, "tp": TP, "layers": rs[0]["layers"],
+            "cut": None, "batch": spec["batch"], "prompt": spec["prompt"],
+            "new": spec["new"], "tokens": toks[:2],
+            "identical_to_tp1": toks == base["tokens"],
+            "ranks_identical": all(r["tokens"] == toks for r in rs),
+            "prefill_rel_err": _rel_max([rs[0]["prefill"]],
+                                        [base["prefill"]]),
+            "max_step_rel_err": _rel_max(rs[0]["logits"], base["logits"]),
+            "states_rel_err": states, "rel_tol": PARITY_REL_TOL,
+            "per_rank": [{"prefill_seconds": r["prefill_seconds"],
+                          "decode_seconds": r["decode_seconds"],
+                          "collectives_per_step": {
+                              k: v / steps for k, v in
+                              r["collectives"].items()},
+                          "max_memory_allocated": r["max_memory_allocated"],
+                          "prefill_launches": r["prefill_launches"],
+                          "launches_per_step": {
+                              k: v / steps for k, v in r["launches"].items()
+                              if v}} for r in rs],
+            "tp1": {"decode_seconds": base["decode_seconds"],
+                    "max_memory_allocated": base["max_memory_allocated"],
+                    "launches_per_step": {
+                        k: v / steps for k, v in base["launches"].items()
+                        if v}}}
+    emit(line)
+    require(line["ranks_identical"] and toks == base["tokens"],
+            f"tp families {name}: tokens differ from tp = 1")
+    require(max(line["prefill_rel_err"], line["max_step_rel_err"],
+                *states.values(), 0.0) <= PARITY_REL_TOL,
+            f"tp families {name}: logits or states apart: {line}")
+    for r in rs:
+        c = r["launches"]
+        require(c["monarch_fused"] + c["bdmm"] > 0
+                and c["paged_attention_span"] == 0,
+                f"tp families {name}: launches {c}")
+        if cfg.layer_kind == "hybrid":
+            require(c["bdmm"] >= 2 * cfg.n_layers * steps,
+                    f"tp families {name}: in_proj's B2 launches {c}")
+
+
+def _phase_tp_families(dev) -> None:
+    """Phase 5e: every family at tp = 2, two gloo ranks sharing the card,
+    each job held to its tp = 1 run on the card (made first, in this
+    process)."""
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+
+    jobs = _tpf_jobs()
+    t0 = time.perf_counter()
+    base = _tpf_rank(None, jobs)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(_tpf_rank, TP, backend="gloo", device="cuda:0",
+                      args=(jobs,), timeout_s=900)
+    emit({"phase": "tp_families_world", "ranks": TP, "backend": "gloo",
+          "device": "cuda:0 (shared)", "tp1_seconds": t1 - t0,
+          "world_seconds": time.perf_counter() - t1,
+          "note": "two ranks time-slice one card: not TP speeds",
+          "max_memory_allocated": {job: [r[job]["max_memory_allocated"]
+                                         for r in ranks] for job in jobs}})
+    for name, spec in jobs.items():
+        rs = [r[name] for r in ranks]
+        if spec["kind"] == "engine":
+            _tpf_engine_lines(name, spec, base[name], rs)
+        else:
+            _tpf_steps_lines(name, spec, base[name], rs)
+
+
 def main() -> int:
     import torch
 
@@ -3467,6 +3877,13 @@ def main() -> int:
     if "--train" in sys.argv[1:]:
         # the training phase alone
         _phase_train(dev)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "card": _card_line()})
+        return 0
+
+    if "--tp-families" in sys.argv[1:]:
+        # phase 5e alone
+        _phase_tp_families(dev)
         emit({"phase": "done", "seconds": time.perf_counter() - t_start,
               "card": _card_line()})
         return 0
@@ -6517,6 +6934,13 @@ def main() -> int:
     del back, p_gpu
     shutil.rmtree(FT_DIR, ignore_errors=True)
     phase_done("5d tp snapshots")
+
+    # -- 5e. every family at tp = 2 on the card: granite-moe-1b-a400m (bf16,
+    # fp32) and qwen2-moe-a2.7b (fp32, int8 fused) through the engine with
+    # expert parallelism, mamba2-2.7b, zamba2-7b and seamless-m4t-large-v2
+    # through the serving steps, each held to its tp = 1 run on the card
+    _phase_tp_families(dev)
+    phase_done("5e tp families")
 
     # -- summary --------------------------------------------------------------
     kernels = []

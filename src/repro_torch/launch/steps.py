@@ -13,6 +13,14 @@ model is served by ``transformer._encode``, then its prompt token by
 token through ``make_decode_step(cfg)(params, tok, cache, enc_out)``
 into a ring, then the new tokens the same way.
 
+Both serving steps take a tensor-parallel ``plan``
+(``sharding.params.tp_plan``): the params are then this rank's shards
+(``shard_params``) and the decode cache this rank's
+(``transformer.init_decode_cache(plan=)``), every rank calls the step
+with the same inputs and gets the same whole logits.  They are the
+reference's tensor-parallel path for the Mamba, hybrid and
+encoder-decoder stacks, as its legacy ``ServeEngine`` takes no mesh.
+
 ``make_train_step`` returns ``(init_state, train_step)``: the state is
 {"params": fp32 masters, "opt": ``optim.AdamWState``, and with gradient
 compression "ef": the error-feedback residuals}; a step takes a batch
@@ -155,24 +163,26 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, plan=None):
     """``prefill_step(params, batch)`` -> the last position's fp32 logits
-    (B, Vp) of a full forward (``transformer.prefill``)."""
+    (B, Vp) of a full forward (``transformer.prefill``), on this rank's
+    shards under ``plan``."""
     def prefill_step(params, batch):
-        return T.prefill(_compute_cast(params, cfg), batch, cfg)
+        return T.prefill(_compute_cast(params, cfg), batch, cfg, plan=plan)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, plan=None):
     """``decode_step(params, tokens, cache, enc_out=None)`` -> (fp32 logits
     (B, Vp), the cache advanced in place); an encoder-decoder model
-    cross-attends ``enc_out``."""
+    cross-attends ``enc_out`` (whole on every rank under ``plan``)."""
     def decode_step(params, tokens, cache, enc_out=None):
         p = _compute_cast(params, cfg)
         if cfg.encdec:
-            return T.decode_step(p, tokens, cache, cfg, enc_out=enc_out)
-        return T.decode_step(p, tokens, cache, cfg)
+            return T.decode_step(p, tokens, cache, cfg, enc_out=enc_out,
+                                 plan=plan)
+        return T.decode_step(p, tokens, cache, cfg, plan=plan)
 
     return decode_step
 

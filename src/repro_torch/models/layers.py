@@ -44,7 +44,9 @@ reference's ``jax.vmap`` of ``ffn_apply`` over the experts and, on the
 kernel backend, one expert-batched launch a projection
 (``kernels.monarch.monarch_fused_experts``).  The router's product and the
 dispatch/combine einsums stay plain PyTorch, as the reference runs them
-outside any kernel.
+outside any kernel.  Under tensor parallelism a rank runs its slice of
+the slots (expert parallelism, the reference's experts over
+``"model"``), and the sublayer ends in one all-reduce.
 
 Cross-attention (``attention_apply(kv_input=...)``, the encoder-decoder
 models' ``xattn``) is the reference's: q from the decoder stream, K and V
@@ -260,15 +262,14 @@ def attention_apply(
     query heads (and ``KV / tp`` KV heads where the pool splits too; a
     fused ``wqkv`` / ``wkv`` holds each part's slice side by side), the
     attention runs on those heads, and ``wo`` is row-parallel over them
-    (one all-reduce)."""
+    (one all-reduce).  Cross-attention splits as self-attention does,
+    its K/V heads from the whole ``enc_out`` on every rank; the ring
+    holds this rank's KV heads, or all of them where the plan keeps the
+    KV heads whole (``init_decode_cache``)."""
     cross = kv_input is not None
-    if cross and (cache is not None or plan is not None):
-        raise ValueError("cross-attention reads enc_out: no cache and no "
-                         "tensor parallelism")
+    if cross and cache is not None:
+        raise ValueError("cross-attention reads enc_out: no cache")
     ring = cache is not None and "k_pages" not in cache
-    if ring and plan is not None:
-        raise ValueError("the ring KV cache serves one device: tensor "
-                         "parallelism serves through the paged pool")
     B, S, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dtype = x.dtype
@@ -315,7 +316,7 @@ def attention_apply(
     new_cache = None
     if ring:
         out, new_cache = _ring_attend(q, k, v, cache, q_pos, cfg, window,
-                                      dtype), cache
+                                      dtype, plan), cache
     elif cache is not None:
         out, new_cache = _paged_attend(
             q, k, v, cache, page_table, q_pos, cfg, window, dtype,
@@ -357,14 +358,17 @@ def _local_kv(k: torch.Tensor, q: torch.Tensor, cfg: ModelConfig,
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                         device=None) -> dict:
-    """One layer's ring cache: K and V (batch, max_len, KV, hd), zeros."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+                         device=None,
+                         n_kv_heads: Optional[int] = None) -> dict:
+    """One layer's ring cache: K and V (batch, max_len, KV, hd), zeros.
+    ``n_kv_heads``: the heads this rank holds (default: all of them)."""
+    shape = (batch, max_len, n_kv_heads or cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _ring_attend(q, k, v, cache, q_pos, cfg: ModelConfig, window, dtype):
+def _ring_attend(q, k, v, cache, q_pos, cfg: ModelConfig, window, dtype,
+                 plan=None):
     """Write the S new k/v rows of each row into the ring at ``q_pos``
     (in place), then attend every query over the whole ring under its own
     causal horizon (and window): the reference's ring branch
@@ -375,7 +379,10 @@ def _ring_attend(q, k, v, cache, q_pos, cfg: ModelConfig, window, dtype):
     sent to T - 1 carrying the value T - 1 ends with (this call's row for
     T - 1 where it writes one, else the ring's own), so every duplicate
     write of T - 1 writes one value and the scatter stays deterministic,
-    with no host sync and no shape that depends on the positions."""
+    with no host sync and no shape that depends on the positions.  Under
+    a plan q holds this rank's heads and the ring its KV heads, or every
+    KV head where the plan keeps them whole (then each query head reads
+    its own, ``_local_kv``)."""
     ck, cv = cache["k"], cache["v"]
     B, S = q_pos.shape
     T = ck.shape[1]
@@ -393,7 +400,8 @@ def _ring_attend(q, k, v, cache, q_pos, cfg: ModelConfig, window, dtype):
     valid = kj <= q_pos[..., None]  # (B,S,T)
     if window is not None:
         valid &= (q_pos[..., None] - kj) < window
-    return _sdpa(q, ck, cv, valid[:, None, None], cfg.logit_softcap, dtype,
+    return _sdpa(q, _local_kv(ck, q, cfg, plan), _local_kv(cv, q, cfg, plan),
+                 valid[:, None, None], cfg.logit_softcap, dtype,
                  fast_scores=cfg.fast_decode_scores)
 
 
@@ -591,9 +599,13 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              backend: str = "einsum", plan=None) -> torch.Tensor:
+              backend: str = "einsum", plan=None,
+              reduce: bool = True) -> torch.Tensor:
     """The FFN; where the plan splits the ``"mlp"`` group ``w1``/``wg``
-    are column-parallel and ``w2`` row-parallel (one all-reduce)."""
+    are column-parallel and ``w2`` row-parallel (one all-reduce, or with
+    ``reduce=False`` this rank's partial sum, for a caller that sums it
+    with others in one all-reduce; a ``w2`` bias would then be added on
+    every rank, so it is refused)."""
     g = None
     if "w1g" in params:  # fused up+gate projection ([up, gate] layout)
         hg = linear_apply(params["w1g"], x, backend=backend)
@@ -614,8 +626,10 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(f"unknown ffn_type {cfg.ffn_type}")
     row = plan is not None and plan.mlp
+    if row and not reduce and "b" in params["w2"]:
+        raise ValueError("a row-parallel partial FFN with a w2 bias")
     return linear_apply(params["w2"], h, backend=backend,
-                        reduce=plan.mesh if row else None)
+                        reduce=plan.mesh if row and reduce else None)
 
 
 # ---------------------------------------------------------------------------
@@ -696,8 +710,8 @@ def _dispatch(idx: torch.Tensor, gates: torch.Tensor, E: int, cap: int,
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              backend: str = "einsum",
-              lb_loss: bool = True) -> tuple[torch.Tensor, dict]:
+              backend: str = "einsum", lb_loss: bool = True,
+              plan=None) -> tuple[torch.Tensor, dict]:
     """Grouped GShard dispatch (the reference's ``moe_apply``): the B*S
     tokens routed within groups of ``group_size`` (halved until it tiles
     them), capacity ``max(4, int(capacity_factor * group * top_k /
@@ -706,7 +720,18 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     the reference), the combine weights them by the renormalised gates,
     and the shared experts see every token.  Returns (output (B, S, d),
     {"lb_loss": the Switch/GShard load-balance loss E * sum_e f_e * p_e});
-    ``lb_loss=False`` (a serving step, which drops it) returns {}."""
+    ``lb_loss=False`` (a serving step, which drops it) returns {}.
+
+    Under a plan that splits ``"experts"`` (expert parallelism, the
+    reference's experts over ``"model"``) every rank routes every token
+    (the activations are whole after each sublayer's all-reduce, so the
+    routes and the capacity, from the group's whole token count, are the
+    same on every rank), keeps its ``n_slots / tp`` slots of the dispatch
+    and combine, runs its experts as one expert-batched launch a
+    projection and forms its partial combine; the shared experts, where
+    ``"mlp"`` splits, add their partial row-parallel sums, and ONE
+    all-reduce sums the whole sublayer.  A part the plan keeps whole is
+    added after it, once."""
     mc: MoEConfig = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -720,17 +745,38 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     E = mc.n_slots
     cap = max(4, int(mc.capacity_factor * sg * mc.top_k / mc.n_experts))
     dispatch, combine = _dispatch(idx, gates, E, cap, x.dtype)
+    ep = plan is not None and plan.experts
+    El = E // plan.tp if ep else E
+    if ep:                       # this rank's slots
+        lo = plan.mesh.rank * El
+        dispatch = dispatch[:, :, lo:lo + El]
+        combine = combine[:, :, lo:lo + El]
     dt = _promote(dispatch, xt)
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xt.to(dt))
     sub = dataclasses.replace(cfg, d_ff=mc.d_expert or cfg.d_ff)
     expert_out = ffn_apply(params["experts"],
-                           expert_in.reshape(E, G * cap, d), sub,
-                           backend).reshape(E, G, cap, d)
+                           expert_in.reshape(El, G * cap, d), sub,
+                           backend).reshape(El, G, cap, d)
     cw = combine.to(x.dtype)
     dt = _promote(cw, expert_out)
+    # under expert parallelism the combine's sum over the experts is split
+    # across the ranks: each sums its own slots, the all-reduce sums the
+    # ranks, in fp32 -- another order than tp = 1's one sum over all slots
     out = torch.einsum("gsec,egcd->gsd", cw.to(dt), expert_out.to(dt))
+    shared_split = plan is not None and plan.mlp
+    partial, whole = (out, None) if ep else (None, out)
     for i in range(mc.n_shared):
-        out = out + ffn_apply(params[f"shared{i}"], xt, sub, backend)
+        f = ffn_apply(params[f"shared{i}"], xt, sub, backend, plan=plan,
+                      reduce=False)
+        if shared_split:
+            partial = f if partial is None else partial + f
+        else:
+            whole = f if whole is None else whole + f
+    if partial is None:
+        out = whole
+    else:
+        out = all_reduce_sum(partial, plan.mesh)
+        out = out if whole is None else out + whole
     if not lb_loss:
         return out.reshape(B, S, d), {}
     frac = torch.mean((idx[..., 0, None] == torch.arange(

@@ -27,6 +27,15 @@ first step (the model dtype promoted with the in projection's output,
 fp32 where bf16 activations meet fp32 parameters on the einsum path), and
 a fixed bf16 buffer would round it.  The step reads the state at that
 window dtype, so the arithmetic is the reference's at either.
+
+Under a tensor-parallel plan that splits ``"ssm_heads"``
+(``sharding.params``) a rank runs its ``H / tp`` SSM heads: ``in_proj``
+is whole on every rank and its output is sliced to the rank's ``z``,
+``x`` and ``dt`` (``B`` and ``C``, one group, whole), the depthwise conv
+runs on the rank's ``x`` channels plus ``B`` and ``C``, the SSM on its
+heads, and ``out_proj`` is row-parallel (one all-reduce).  The gated
+RMSNorm normalises over the WHOLE ``d_inner``, so the ranks' fp32 sums
+of squares are summed by one more all-reduce before the ``rsqrt``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch.nn.functional as F
 from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _promote
+from repro_torch.sharding.api import all_reduce_sum
 
 
 def _dims(cfg: ModelConfig):
@@ -191,22 +201,39 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, nheads], dim=-1)
 
 
+def _local(cfg: ModelConfig, plan) -> tuple[int, int, int]:
+    """(tp, rank, d_inner / tp) of the SSM heads' split under ``plan``,
+    (1, 0, d_inner) where it does not split them."""
+    d_inner = _dims(cfg)[0]
+    if plan is None or not plan.ssm_heads:
+        return 1, 0, d_inner
+    return plan.tp, plan.mesh.rank, d_inner // plan.tp
+
+
 def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[dict] = None,
-                backend: str = "einsum") -> tuple[torch.Tensor,
-                                                  Optional[dict]]:
+                backend: str = "einsum",
+                plan=None) -> tuple[torch.Tensor, Optional[dict]]:
     """The full Mamba2 block.  ``cache`` = {"conv": (B, d_conv-1,
     conv_dim), "ssm": (B, H, P, N) fp32} selects the O(1) single-token
     step (S = 1), which writes both states in place and returns the same
     cache; without one the chunked path runs (S a multiple of the chunk,
-    or below it)."""
+    or below it).  Under a plan, ``params`` and ``cache`` are this rank's
+    (module docstring) and the output is whole."""
     s = cfg.ssm
     bsz, S, _ = x.shape
-    d_inner, nheads, conv_dim = _dims(cfg)
+    d_full = _dims(cfg)[0]
+    tp, rank, d_inner = _local(cfg, plan)
+    nheads = d_inner // s.head_dim
+    gn = s.n_groups * s.d_state
+    conv_dim = d_inner + 2 * gn
     P = s.head_dim
 
     zxbcdt = linear_apply(params["in_proj"], x, backend=backend)
     z, xc, B, C, dt = _split_proj(cfg, zxbcdt)
+    if tp > 1:       # this rank's heads of the whole projection's parts
+        z, xc = (t[..., rank * d_inner:(rank + 1) * d_inner] for t in (z, xc))
+        dt = dt[..., rank * nheads:(rank + 1) * nheads]
     xBC = torch.cat([xc, B, C], dim=-1)                        # (b,S,conv)
     w, cb = params["conv_w"], params["conv_b"]
 
@@ -231,7 +258,6 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         xBC = F.silu(out + cb)[:, None, :]
         new_conv = window[:, 1:, :]
 
-    gn = s.n_groups * s.d_state
     xc2, B2, C2 = torch.split(xBC, [d_inner, gn, gn], dim=-1)
     xh = xc2.reshape(bsz, -1, nheads, P)
     Bh = B2.reshape(bsz, -1, s.n_groups, s.d_state)
@@ -260,20 +286,31 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     # gated RMSNorm (Mamba2): normalise in fp32, cast, then scale
     y = y * F.silu(z)
     yf = y.float()
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if tp > 1:       # the mean over the whole d_inner: the ranks' sums
+        ss = all_reduce_sum(torch.sum(torch.square(yf), dim=-1,
+                                      keepdim=True), plan.mesh)
+        var = ss / d_full
+    else:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
     y = (yf * torch.rsqrt(var + 1e-6)).to(x.dtype)
     y = y * params["norm_scale"]
-    out = linear_apply(params["out_proj"], y, backend=backend)
+    out = linear_apply(params["out_proj"], y, backend=backend,
+                       reduce=plan.mesh if tp > 1 else None)
     return out, cache
 
 
-def mamba_cache_init(cfg: ModelConfig, batch: int, device=None) -> dict:
+def mamba_cache_init(cfg: ModelConfig, batch: int, device=None,
+                     plan=None) -> dict:
     """One layer's recurrent state, zeros: ``conv`` (batch, d_conv - 1,
     conv_dim) and ``ssm`` (batch, H, P, N), both fp32.  The reference
     takes the model dtype for ``conv``; here it is stored wide and read
-    at its window's dtype (see the module docstring)."""
+    at its window's dtype (see the module docstring).  Under a plan that
+    splits the SSM heads, this rank's: ``conv`` over its ``x`` channels
+    and ``B``/``C`` whole, ``ssm`` over its ``H / tp`` heads."""
     s = cfg.ssm
-    _, nheads, conv_dim = _dims(cfg)
+    _, _, d_inner = _local(cfg, plan)
+    nheads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
     return {
         "conv": torch.zeros((batch, s.d_conv - 1, conv_dim),
                             dtype=torch.float32, device=device),

@@ -113,7 +113,9 @@ def attn_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ``aux["lb_loss"]`` when ``aux`` is given.  A block with ``xattn``
     cross-attends ``enc_out`` (every key visible, no RoPE) after its
     self-attention; with ``enc_out=None`` that sublayer attends the
-    block's own tokens, as the reference's does."""
+    block's own tokens, as the reference's does.  Under a plan the
+    cross-attention splits its heads as the self-attention does and an
+    MoE block runs its slots of the experts (``layers.moe_apply``)."""
     h = L.norm_apply(p["ln1"], x, cfg.norm_type)
     a, _ = L.attention_apply(
         p["attn"], h, cfg, window=window,
@@ -126,13 +128,13 @@ def attn_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if "xattn" in p:
         h = L.norm_apply(p["ln_x"], x, cfg.norm_type)
         a, _ = L.attention_apply(p["xattn"], h, cfg, kv_input=enc_out,
-                                 backend=cfg.monarch.backend)
+                                 backend=cfg.monarch.backend, plan=plan)
         x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm_type)
     if "moe" in p:
         f, moe_aux = L.moe_apply(p["moe"], h, cfg,
                                  backend=cfg.monarch.backend,
-                                 lb_loss=aux is not None)
+                                 lb_loss=aux is not None, plan=plan)
         if aux is not None:
             aux["lb_loss"] = aux["lb_loss"] + moe_aux["lb_loss"]
     else:
@@ -154,10 +156,10 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
 
 
 def _mamba_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 cache: Optional[dict]) -> torch.Tensor:
+                 cache: Optional[dict], plan=None) -> torch.Tensor:
     h = L.norm_apply(p["ln"], x, cfg.norm_type)
     y, _ = M.mamba_apply(p["mamba"], h, cfg, cache=cache,
-                         backend=cfg.monarch.backend)
+                         backend=cfg.monarch.backend, plan=plan)
     return x + y
 
 
@@ -249,7 +251,10 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     given.  Without a cache and with ``train``, each attention or Mamba
     layer, and each hybrid group (its Mamba layers and the shared block),
     is checkpointed as ``cfg.remat`` asks (:func:`_maybe_remat`), where
-    the reference remats its scan bodies."""
+    the reference remats its scan bodies.  Under a tensor-parallel
+    ``plan`` every branch runs this rank's shards (``params`` and the
+    cache as ``sharding.params`` and ``init_decode_cache`` lay them out)
+    and returns whole activations."""
     aux = ({"lb_loss": torch.zeros((), dtype=torch.float32,
                                    device=x.device)} if aux_loss else None)
     remat = train and cache is None
@@ -281,7 +286,8 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         for i in range(cfg.n_layers):
             x = layer(
                 layer_params(params["layers"], i), x, cfg,
-                None if cache is None else layer_params(cache["layers"], i))
+                None if cache is None else layer_params(cache["layers"], i),
+                plan)
     else:
         # hybrid: each group's Mamba layers, then the ONE shared block
         # (global attention) over that group's own ring; then the tail
@@ -292,10 +298,12 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             for j in range(cfg.shared_attn_every):
                 h = _mamba_layer(
                     layer_params(gp, j), h, cfg,
-                    None if gc is None else layer_params(gc["mamba"], j))
+                    None if gc is None else layer_params(gc["mamba"], j),
+                    plan)
             return attn_block_apply(
                 shared, h, cfg, window=None,
-                cache=None if gc is None else {"attn": gc["attn"]}, pos=pos)
+                cache=None if gc is None else {"attn": gc["attn"]}, pos=pos,
+                plan=plan)
 
         group = _maybe_remat(group, cfg, remat)
         for gi in range(n_groups):
@@ -305,7 +313,8 @@ def decoder_stack_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         for i in range(hybrid_groups(cfg)[1]):
             x = _mamba_layer(
                 layer_params(params["tail"], i), x, cfg,
-                None if cache is None else layer_params(cache["tail"], i))
+                None if cache is None else layer_params(cache["tail"], i),
+                plan)
     return x, cache, ({} if aux is None else aux)
 
 
@@ -340,38 +349,45 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def _encode(params: dict, batch: dict, cfg: ModelConfig,
-            train: bool = False) -> torch.Tensor:
+            train: bool = False, plan=None) -> torch.Tensor:
     """The encoder pass (bidirectional).  The audio frontend is a stub:
     the batch carries precomputed frame embeddings (``enc_embeds``), or
-    else ``enc_tokens`` are embedded."""
+    else ``enc_tokens`` are embedded.  Under a plan the encoder's heads
+    and FFN split as the decoder's, and ``enc_out`` comes out whole on
+    every rank."""
     dtype = _dtype(cfg)
     if "enc_embeds" in batch:
         h = batch["enc_embeds"].to(dtype)
     else:
-        h = L.embed(params["embedding"], batch["enc_tokens"], cfg, dtype)
+        h = L.embed(params["embedding"], batch["enc_tokens"], cfg, dtype,
+                    plan=plan)
     h, _, _ = decoder_stack_apply(params["encoder"], h, _enc_cfg(cfg),
-                                  bidir=True, train=train, aux_loss=False)
+                                  bidir=True, train=train, plan=plan,
+                                  aux_loss=False)
     return L.norm_apply(params["ln_enc"], h, cfg.norm_type)
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True):
+def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True,
+            plan=None):
     """Full-sequence causal forward: (logits (B,S,Vp) fp32, aux).  A
     vision frontend's ``patch_embeds`` (B, n, d) are prepended to the
     text and their positions cut off the output; an encoder-decoder model
-    encodes ``enc_embeds`` or ``enc_tokens`` first."""
+    encodes ``enc_embeds`` or ``enc_tokens`` first.  Under a plan
+    ``params`` are this rank's shards and the logits come out whole."""
     dtype = _dtype(cfg)
-    x = L.embed(params["embedding"], batch["tokens"], cfg, dtype)
+    x = L.embed(params["embedding"], batch["tokens"], cfg, dtype, plan=plan)
     n_front = 0
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         n_front = batch["patch_embeds"].shape[1]
         x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
-    enc_out = _encode(params, batch, cfg, train) if cfg.encdec else None
+    enc_out = _encode(params, batch, cfg, train, plan) if cfg.encdec \
+        else None
     x, _, aux = decoder_stack_apply(params["decoder"], x, cfg,
-                                    enc_out=enc_out, train=train)
+                                    enc_out=enc_out, train=train, plan=plan)
     if n_front:
         x = x[:, n_front:, :]
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
-    return L.unembed(params["embedding"], x, cfg), aux
+    return L.unembed(params["embedding"], x, cfg, plan=plan), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
@@ -391,7 +407,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device: DeviceLike = None) -> dict:
+                      device: DeviceLike = None, plan=None) -> dict:
     """The decode cache, zeros, in the reference's layout: an attention
     stack's ring {"layers": {"attn": {"k": (L, B, max_len, KV, hd), "v":
     ...}}} (K and V in the model dtype); a Mamba stack's states
@@ -399,21 +415,32 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     H, P, N) fp32}} (``mamba2.mamba_cache_init``: the conv state is
     stored wide and read at its window's dtype); a hybrid's {"groups":
     {"mamba": (n_groups, g, ...) states, "attn": (n_groups, ...) rings},
-    "tail": (tail, ...) states}; and "pos" (B,) int32."""
+    "tail": (tail, ...) states}; and "pos" (B,) int32.
+
+    Under a tensor-parallel ``plan`` (the port of the reference's
+    ``cache_shardings``) each leaf is this rank's: a ring holds its
+    ``KV / tp`` heads where the plan splits the KV heads, and all of them
+    where it keeps them whole (never the reference's fallback of
+    splitting the ring's sequence axis); a Mamba ``conv`` state holds the
+    rank's ``x`` channels and ``B``/``C`` whole, its ``ssm`` state ``(B,
+    H / tp, P, N)`` (``mamba2.mamba_cache_init``)."""
     dev = resolve_device(device)
     dtype = _dtype(cfg)
+    kv = cfg.n_kv_heads // (plan.tp if plan is not None and plan.kv_heads
+                            else 1)
 
     def stacked(one: dict, prefix: tuple) -> dict:
         return {name: a.new_zeros((*prefix, *a.shape))
                 for name, a in one.items()}
 
     def ring():
-        return L.attention_cache_init(cfg, batch, max_len, dtype, device=dev)
+        return L.attention_cache_init(cfg, batch, max_len, dtype, device=dev,
+                                      n_kv_heads=kv)
 
     if cfg.layer_kind == "attn":
         cache = {"layers": {"attn": stacked(ring(), (cfg.n_layers,))}}
     else:
-        state = M.mamba_cache_init(cfg, batch, device=dev)
+        state = M.mamba_cache_init(cfg, batch, device=dev, plan=plan)
         if cfg.layer_kind == "mamba":
             cache = {"layers": stacked(state, (cfg.n_layers,))}
         else:
@@ -428,27 +455,33 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
-                cfg: ModelConfig, enc_out=None):
+                cfg: ModelConfig, enc_out=None, plan=None):
     """One new token per batch row (``tokens`` (B,)) against the running
     cache: its k/v rows are written at ``cache["pos"]``, the Mamba states
     advance, and ``pos`` advances by one, all in place.  An
     encoder-decoder model cross-attends ``enc_out`` (its K and V
-    recomputed from it at every step, as in the reference).  Returns
-    (fp32 logits (B, Vp), the same cache)."""
+    recomputed from it at every step, as in the reference).  Under a
+    plan ``params`` and ``cache`` are this rank's shards
+    (``init_decode_cache(plan=)``), ``enc_out`` is whole, and the logits
+    come out whole on every rank.  Returns (fp32 logits (B, Vp), the
+    same cache)."""
     dtype = _dtype(cfg)
     pos = cache["pos"]
-    x = L.embed(params["embedding"], tokens[:, None], cfg, dtype)
+    x = L.embed(params["embedding"], tokens[:, None], cfg, dtype, plan=plan)
     x, _, _ = decoder_stack_apply(params["decoder"], x, cfg, cache=cache,
-                                  pos=pos, enc_out=enc_out, aux_loss=False)
+                                  pos=pos, enc_out=enc_out, plan=plan,
+                                  aux_loss=False)
     x = L.norm_apply(params["ln_f"], x, cfg.norm_type)
-    logits = L.unembed(params["embedding"], x, cfg)
+    logits = L.unembed(params["embedding"], x, cfg, plan=plan)
     pos.add_(1)
     return logits[:, 0], cache
 
 
-def prefill(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """The last position's logits of a full causal forward."""
-    logits, _ = forward(params, batch, cfg, train=False)
+def prefill(params: dict, batch: dict, cfg: ModelConfig,
+            plan=None) -> torch.Tensor:
+    """The last position's logits of a full causal forward (this rank's
+    shards under a plan; the logits whole)."""
+    logits, _ = forward(params, batch, cfg, train=False, plan=plan)
     return logits[:, -1]
 
 

@@ -103,7 +103,7 @@ pages' export is a collective) and rank 0 alone writes the files.
 
 A mesh whose ``"data"`` axis is > 1 is not ported (it raises
 ``NotImplementedError``): that axis carries data parallelism and FSDP,
-which come with training.
+queued in ROADMAP.md (section A, item 5).
 
 :class:`ServeEngine` is the reference's legacy single-batch engine over
 the ring KV cache: one prefill of the whole prompt block

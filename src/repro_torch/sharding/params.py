@@ -30,8 +30,40 @@ two all-reduces a layer.  For a factor pair ``L (k, q, p)``,
     untied ``unembed (d, Vp)`` its vocab columns): vocab-parallel lookup
     and logits.
 
-Rules are suffix patterns on the ``/``-joined parameter path; any leading
-dims (the stacked layer axis) are untouched.  Each rule belongs to a
+Every family of the reference splits over the same axis:
+
+  * **experts** (``moe/experts/...``, the reference's ``("experts", ...)``
+    rules): every leaf of the stacked routed experts splits its expert
+    axis, the one in front of each expert's own dims (``L (E, k, q, p)``,
+    ``R (E, q, s, k)``, dense ``w (E, din, dout)``, the quantized ``Lq`` /
+    ``Ls`` / ``Rq`` / ``Rs`` alike), so each rank holds ``n_slots / tp``
+    whole experts: a fused ``w1g`` and an int4 pair are never cut.  The
+    router stays whole; the shared experts (``moe/shared{i}/...``) are
+    ``"mlp"`` pairs like a dense FFN;
+  * the **encoder** (``encoder/...``) falls under the attention and FFN
+    rules, and the **cross-attention** (``xattn/...``) under rules of its
+    own in the same groups: its q heads and its K/V heads split as the
+    self-attention's do;
+  * **Mamba** leaves (``mamba/...``) split their SSM heads
+    (``"ssm_heads"``): ``conv_w`` / ``conv_b`` part by part (``[x | B | C]``:
+    the ``x`` channels by heads, the one group's ``B`` and ``C`` whole),
+    ``A_log``, ``dt_bias``, ``D`` and the gated norm's ``norm_scale`` by
+    heads, and ``out_proj`` row-parallel (its input blocks of ``head_dim``
+    lie on head boundaries).  ``in_proj`` stays whole on every rank and
+    each rank slices its output, ``[z | x | B | C | dt]``, by parts.  Its
+    output blocks (661 wide for mamba2-2.7b, 911 for zamba2-7b) straddle
+    the parts' boundaries, so no column split of its factors can hand a
+    rank its parts; splitting by output blocks would need an
+    ``all_gather`` of the whole output in every layer, while the whole
+    factors are ~0.2 M weights a layer and every column stays exactly the
+    tp = 1 column, with no collective.  The gated norm's statistic spans
+    the whole ``d_inner``: one ``all_reduce`` of its partial sums a layer
+    (``models/mamba2.py``).  Split only for one group (``n_groups == 1``,
+    both Mamba configs).
+
+Rules are patterns on the ``/``-joined parameter path's components (a
+shared expert's ``shared{i}`` reads as ``shared``); any leading dims
+(the stacked layer axis) are untouched.  Each rule belongs to a
 group whose members must split together — a head-split ``wq`` needs a
 head-split ``wo`` — and the reference's divisibility guard decides per
 group: a group whose dims ``tp`` does not divide stays replicated.  KV
@@ -42,7 +74,7 @@ axis does not divide keeps ``wk``/``wv`` and the pool whole on every rank.
 The decision is made once, at load, by :func:`tp_plan`: its
 :class:`TPPlan` is what ``shard_params`` slices by, what the layers read
 to know which linears end in an all-reduce and where attention runs, and
-what sizes the engine's pool (``kv_shard``).
+what sizes the engine's pool (``kv_shard``) and the decode cache.
 """
 
 from __future__ import annotations
@@ -59,18 +91,37 @@ from repro_torch.sharding.api import divides
 # (path components that must all appear, the group of each part, role).
 # A fused projection (``models/fuse.py``) holds its parts side by side on
 # the column split's axis: ``wqkv`` is [q | k | v], ``wkv`` [k | v] and
-# ``w1g`` [up | gate]; each part splits (or stays whole) as its group does
+# ``w1g`` [up | gate]; each part splits (or stays whole) as its group does.
+# A part of group WHOLE never splits (a Mamba conv's B and C channels)
+WHOLE = "whole"
 _RULES: list[tuple[tuple[str, ...], tuple[str, ...], str]] = [
+    (("moe", "experts"), ("experts",), "experts"),
+    (("shared", "w1"), ("mlp",), "column"),
+    (("shared", "wg"), ("mlp",), "column"),
+    (("shared", "w1g"), ("mlp", "mlp"), "column"),
+    (("shared", "w2"), ("mlp",), "row"),
     (("attn", "wq"), ("heads",), "column"),
     (("attn", "wk"), ("kv_heads",), "column"),
     (("attn", "wv"), ("kv_heads",), "column"),
     (("attn", "wqkv"), ("heads", "kv_heads", "kv_heads"), "column"),
     (("attn", "wkv"), ("kv_heads", "kv_heads"), "column"),
     (("attn", "wo"), ("heads",), "row"),
+    (("xattn", "wq"), ("heads",), "column"),
+    (("xattn", "wk"), ("kv_heads",), "column"),
+    (("xattn", "wv"), ("kv_heads",), "column"),
+    (("xattn", "wkv"), ("kv_heads", "kv_heads"), "column"),
+    (("xattn", "wo"), ("heads",), "row"),
     (("ffn", "w1"), ("mlp",), "column"),
     (("ffn", "wg"), ("mlp",), "column"),
     (("ffn", "w1g"), ("mlp", "mlp"), "column"),
     (("ffn", "w2"), ("mlp",), "row"),
+    (("mamba", "conv_w"), ("ssm_heads", WHOLE, WHOLE), "ssm"),
+    (("mamba", "conv_b"), ("ssm_heads", WHOLE, WHOLE), "ssm"),
+    (("mamba", "A_log"), ("ssm_heads",), "ssm"),
+    (("mamba", "dt_bias"), ("ssm_heads",), "ssm"),
+    (("mamba", "D"), ("ssm_heads",), "ssm"),
+    (("mamba", "norm_scale"), ("ssm_heads",), "ssm"),
+    (("mamba", "out_proj"), ("ssm_heads",), "row"),
     (("embedding", "table"), ("vocab",), "vocab_rows"),
     (("embedding", "unembed"), ("vocab",), "vocab_cols"),
 ]
@@ -83,21 +134,36 @@ _RULES: list[tuple[tuple[str, ...], tuple[str, ...], str]] = [
 # whole block, so it splits on the block axis or stays whole.  int4 packs
 # pairs along the last axis, so a row-parallel ``Rq`` splits its packed
 # k/2 bytes: the divisibility guard then needs k/tp even, which keeps
-# every packed pair on one rank
+# every packed pair on one rank.  An expert leaf splits the axis in front
+# of one expert's own dims
 _AXES: dict[str, dict[str, Optional[int]]] = {
     "column": {"L": -2, "R": -3, "w": -1, "b": -1,
                "Lq": -2, "Ls": None, "Rq": -3, "Rs": -3},
     "row": {"L": -3, "R": -1, "w": -2, "b": None,
             "Lq": -3, "Ls": -3, "Rq": -1, "Rs": None},
+    "experts": {"L": -4, "R": -4, "w": -3, "b": -2,
+                "Lq": -4, "Ls": -4, "Rq": -4, "Rs": -4},
+    "ssm": {"conv_w": -1, "conv_b": -1, "A_log": -1, "dt_bias": -1,
+            "D": -1, "norm_scale": -1},
     "vocab_rows": {"table": -2},
     "vocab_cols": {"unembed": -1},
 }
 
-GROUPS = ("heads", "kv_heads", "mlp", "vocab")
+# the groups of every model; a family's own groups join them where the
+# model has that family (TPPlan.present)
+BASE_GROUPS = ("heads", "kv_heads", "mlp", "vocab")
+GROUPS = BASE_GROUPS + ("experts", "ssm_heads")
+
+
+def _components(path: str) -> list[str]:
+    """The path's components, a shared expert's ``shared{i}`` as
+    ``shared`` (zamba2's ``shared_attn`` stays itself)."""
+    return ["shared" if c.startswith("shared") and c[6:].isdigit() else c
+            for c in path.split("/")]
 
 
 def _rule(path: str) -> Optional[tuple[tuple[str, ...], str]]:
-    parts = path.split("/")
+    parts = _components(path)
     for needles, groups, role in _RULES:
         if all(n in parts for n in needles):
             return groups, role
@@ -134,9 +200,15 @@ class TPPlan:
     kv_heads: bool = False
     mlp: bool = False
     vocab: bool = False
+    experts: bool = False
+    ssm_heads: bool = False
     # the model's head counts: a fused [q | k | v]'s parts are h : kv : kv
     n_heads: int = 1
     n_kv_heads: int = 1
+    # a Mamba conv's [x | B | C]: the width of B (and of C), n_groups * N
+    ssm_bc: int = 0
+    # the groups this model has (a family's groups where it has the family)
+    present: tuple[str, ...] = BASE_GROUPS
 
     @property
     def tp(self) -> int:
@@ -154,16 +226,19 @@ class TPPlan:
         return self.tp > 1 and not self.kv_heads
 
     def groups(self) -> dict[str, bool]:
-        return {g: getattr(self, g) for g in GROUPS}
+        return {g: getattr(self, g) for g in self.present}
 
 
 def _part_widths(path: str, n: int, groups: tuple[str, ...], n_heads: int,
-                 n_kv_heads: int) -> list[int]:
+                 n_kv_heads: int, ssm_bc: int = 0) -> list[int]:
     """The widths of a (fused) leaf's parts on its split axis, ``n`` in
-    all: in the ratio of the parts' head counts, equal for a part of any
-    other group."""
+    all: a Mamba conv's ``[x | B | C]`` at ``[n - 2 ssm_bc, ssm_bc,
+    ssm_bc]``, otherwise in the ratio of the parts' head counts, equal
+    for a part of any other group."""
     if len(groups) == 1:
         return [n]
+    if WHOLE in groups:
+        return [n - 2 * ssm_bc, ssm_bc, ssm_bc]
     g = math.gcd(n_heads, n_kv_heads)
     ratio = [{"heads": n_heads // g, "kv_heads": n_kv_heads // g}.get(p, 1)
              for p in groups]
@@ -176,44 +251,38 @@ def _part_widths(path: str, n: int, groups: tuple[str, ...], n_heads: int,
 def tp_plan(tree, cfg: ModelConfig, mesh) -> TPPlan:
     """Which groups split over ``mesh``'s ``tp``-way ``"model"`` axis:
     each one whose every split dim ``tp`` divides (and, for heads, whose
-    head counts it divides); KV heads only where the pool splits too.
-    Norms without a rule (gemma2's ``ln1_post`` / ``ln2_post`` too) stay
-    whole on every rank.  A mixture-of-experts model at ``tp`` > 1 raises
-    ``NotImplementedError``: it needs expert parallelism; so do Mamba and
-    hybrid stacks and encoder-decoder models, whose rules are not
-    ported."""
+    head counts it divides; for experts, whose slot count it divides; for
+    SSM heads, whose head count it divides, with one group); KV heads
+    only where the pool splits too.  Norms without a rule (gemma2's
+    ``ln1_post`` / ``ln2_post`` too), the router and ``in_proj`` stay
+    whole on every rank.  Every config is planned: a group the axis does
+    not divide stays whole."""
     from repro_torch.serving.device_kv import kv_shard_size
 
     tp = mesh.model
-    if cfg.moe is not None and tp > 1:
-        # the reference shards the stacked experts over "model"
-        # (repro/sharding/params.py:48-52): expert parallelism
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers at tp = {tp} need expert "
-            f"parallelism (experts over the \"model\" axis), which is not "
-            f"ported yet")
-    if tp > 1 and (cfg.layer_kind != "attn" or cfg.encdec):
-        # the reference splits the Mamba leaves over "model" (its rules
-        # for in_proj, out_proj, conv_w, conv_b, A_log, dt_bias,
-        # norm_scale and D, repro/sharding/params.py:65-72), and the
-        # encoder's and the cross-attention's heads as any attention's
-        what = ("Mamba layers (in_proj, out_proj and the SSM heads' "
-                "leaves over \"model\")" if cfg.layer_kind != "attn" else
-                "the encoder and the cross-attention (xattn) under a plan")
-        raise NotImplementedError(
-            f"{cfg.name}: {what} at tp = {tp} are not ported yet")
     ok = {g: tp > 1 for g in GROUPS}
     ok["heads"] &= cfg.n_heads % tp == 0
     ok["vocab"] &= cfg.vocab_padded % tp == 0
+    present = BASE_GROUPS
+    ssm_bc = 0
+    if cfg.moe is not None:
+        present += ("experts",)
+        ok["experts"] &= cfg.moe.n_slots % tp == 0
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        present += ("ssm_heads",)
+        ssm_bc = s.n_groups * s.d_state
+        n_ssm = s.expand * cfg.d_model // s.head_dim
+        ok["ssm_heads"] &= n_ssm % tp == 0 and s.n_groups == 1
     for path, leaf in _leaves(tree):
         ax = _split_axis(path)
         if ax is None:
             continue
         groups = _rule(path)[0]
         widths = _part_widths(path, leaf.shape[ax], groups, cfg.n_heads,
-                              cfg.n_kv_heads)
+                              cfg.n_kv_heads, ssm_bc)
         for g, width in zip(groups, widths):
-            if not divides(width, tp):
+            if g != WHOLE and not divides(width, tp):
                 ok[g] = False
     pool_split = kv_shard_size(cfg, tp) == tp > 1
     if pool_split and not (ok["heads"] and ok["kv_heads"]):
@@ -222,7 +291,7 @@ def tp_plan(tree, cfg: ModelConfig, mesh) -> TPPlan:
             f"weights' blocks do not divide by it")
     ok["kv_heads"] &= pool_split
     return TPPlan(mesh, **ok, n_heads=cfg.n_heads,
-                  n_kv_heads=cfg.n_kv_heads)
+                  n_kv_heads=cfg.n_kv_heads, ssm_bc=ssm_bc, present=present)
 
 
 def split_parts(path: str, shape, plan: TPPlan
@@ -230,17 +299,18 @@ def split_parts(path: str, shape, plan: TPPlan
     """``(axis, ((width, splits), ...))`` for ``path``'s leaf of
     ``shape`` under ``plan``: one part for a plain projection, one a
     projection for a fused one (``[q | k | v]``, ``[k | v]``, ``[up |
-    gate]``), each with its width on the axis and whether its group
-    splits.  None where the leaf stays whole."""
+    gate]``) and for a Mamba conv (``[x | B | C]``), each with its width
+    on the axis and whether its group splits.  None where the leaf stays
+    whole."""
     r = _rule(path)
     if r is None:
         return None
     ax = _split_axis(path)
-    flags = tuple(getattr(plan, g) for g in r[0])
+    flags = tuple(g != WHOLE and getattr(plan, g) for g in r[0])
     if ax is None or not any(flags):
         return None
     widths = _part_widths(path, shape[ax], r[0], plan.n_heads,
-                          plan.n_kv_heads)
+                          plan.n_kv_heads, plan.ssm_bc)
     return ax, tuple(zip(widths, flags))
 
 

@@ -21,7 +21,8 @@ modules agree to 2e-5, logits to ``LOGITS`` (1e-4), tokens exactly:
 * both engines at both configs serve the text stream (no ``enc_out``:
   the cross-attention attends the block's own tokens, as the
   reference's engines do) with the reference's tokens;
-* at tp > 1 an encoder-decoder model raises ``NotImplementedError``.
+* at tp = 2 the plan splits the encoder and the cross-attention as the
+  decoder (served at tp = 2 in ``tests/test_torch_tp_families.py``).
 """
 
 import dataclasses
@@ -47,7 +48,7 @@ from repro_torch.launch import steps as TS
 from repro_torch.models import fuse as TF
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
-from repro_torch.sharding.params import tp_plan
+from repro_torch.sharding.params import split_parts, tp_plan
 
 FP32 = dict(rtol=2e-5, atol=2e-5)
 LOGITS = dict(rtol=1e-4, atol=1e-4)   # tests/test_torch_models.py
@@ -317,6 +318,18 @@ def test_continuous_batching_tokens_equal_reference(arch):
 
 
 def test_encdec_at_tp2_is_not_ported():
+    """At tp = 2 the plan splits the encoder's attention and FFN and the
+    cross-attention's heads as the decoder's self-attention: column-
+    parallel wq / wk / wv / w1, row-parallel wo / w2."""
     _, tc, _, tp = _model(SEAMLESS)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        tp_plan(tp, tc, types.SimpleNamespace(model=2))
+    plan = tp_plan(tp, tc, types.SimpleNamespace(model=2))
+    assert plan.heads and plan.kv_heads and plan.mlp
+    for stack, block, name, ax in (
+            ("encoder", "attn", "wq", -3), ("encoder", "attn", "wo", -1),
+            ("encoder", "ffn", "w1", -3), ("encoder", "ffn", "w2", -1),
+            ("decoder", "xattn", "wq", -3), ("decoder", "xattn", "wk", -3),
+            ("decoder", "xattn", "wv", -3), ("decoder", "xattn", "wo", -1)):
+        leaf = tp[stack]["layers"][block][name]["R"]
+        got = split_parts(f"{stack}/layers/{block}/{name}/R", leaf.shape,
+                          plan)
+        assert got == (ax, ((leaf.shape[ax], True),)), (stack, block, name)

@@ -26,7 +26,8 @@ counterparts in ``repro_torch``.  fp32 modules agree to 2e-5, logits to
 * ``ContinuousBatchingEngine`` refuses a Mamba or hybrid stack with the
   reference's ``ValueError``, and a prompt that is not a multiple of the
   chunk raises in the chunked path, as the reference's assert does; at
-  tp > 1 a Mamba stack raises ``NotImplementedError`` naming its layers.
+  tp = 2 the plan splits a Mamba stack's SSM heads (served at tp = 2
+  in ``tests/test_torch_tp_families.py``).
 """
 
 import dataclasses
@@ -53,7 +54,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.config import ModelConfig as TModelConfig
 from repro_torch.models.config import SSMConfig as TSSMConfig
 from repro_torch.serving.ring_graphs import RingDecode
-from repro_torch.sharding.params import tp_plan
+from repro_torch.sharding.params import split_parts, tp_plan
 from test_torch_step_graphs import _HostGraph
 
 FP32 = dict(rtol=2e-5, atol=2e-5)
@@ -392,6 +393,27 @@ def test_continuous_batching_refuses_ssm_stacks(arch):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
 def test_ssm_stacks_at_tp2_are_not_ported(arch):
+    """At tp = 2 the plan splits the Mamba leaves' SSM heads over "model"
+    as the reference's rules do (conv_w / conv_b's x channels, A_log,
+    dt_bias, D, norm_scale, out_proj's input blocks), keeps the B and C
+    channels and in_proj whole, and splits a hybrid's shared attention."""
     _, tc, _, tp = _reduced(arch)
-    with pytest.raises(NotImplementedError, match="Mamba layers"):
-        tp_plan(tp, tc, types.SimpleNamespace(model=2))
+    plan = tp_plan(tp, tc, types.SimpleNamespace(model=2))
+    assert plan.ssm_heads and plan.groups()["ssm_heads"]
+    if arch == "zamba2-7b":
+        assert plan.heads and plan.kv_heads
+    s = tc.ssm
+    d_inner, gn = s.expand * tc.d_model, s.n_groups * s.d_state
+    stem = "layers" if arch == "mamba2-2.7b" else "groups"
+    mamba = tp["decoder"][stem]["mamba"]
+    path = f"decoder/{stem}/mamba"
+    assert split_parts(f"{path}/conv_w", mamba["conv_w"].shape, plan) == (
+        -1, ((d_inner, True), (gn, False), (gn, False)))
+    for name in ("A_log", "dt_bias", "D", "norm_scale"):
+        n = mamba[name].shape[-1]
+        assert split_parts(f"{path}/{name}", mamba[name].shape, plan) == (
+            -1, ((n, True),))
+    assert split_parts(f"{path}/out_proj/L", mamba["out_proj"]["L"].shape,
+                       plan)[0] == -3
+    assert split_parts(f"{path}/in_proj/L", mamba["in_proj"]["L"].shape,
+                       plan) is None

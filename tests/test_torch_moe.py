@@ -16,8 +16,8 @@ experts, top-2; qwen2 keeps its 64 slots and one shared expert).
   the reference's 95% bar for int8 pages).  The float greedy trace is
   ``tests/test_torch_configs_serving.py``'s; the sampled traces and the
   legacy ``ServeEngine`` are ``tests/test_torch_families.py``'s.
-* A mixture-of-experts model at tp > 1 raises, naming expert
-  parallelism.
+* At tp = 2 the plan splits the experts over "model" (expert
+  parallelism; served at tp = 2 in ``tests/test_torch_tp_families.py``).
 * A dense-attention MoE step (``paged_kernel=False``: padding queries
   read the sink page) equals the reference's, pool, logits and routes:
   colliding sink writes keep the last write in row-major order, as the
@@ -57,7 +57,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.fuse import fuse_model as tfuse_model
-from repro_torch.sharding.params import tp_plan
+from repro_torch.sharding.params import split_parts, tp_plan
 from _torch_numpy_params import both
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -426,9 +426,21 @@ def test_dense_attention_moe_step_equals_reference():
 
 
 def test_moe_at_tp2_needs_expert_parallelism():
+    """At tp = 2 the plan splits the stacked experts over "model" (the
+    reference's ``("experts", ...)`` rules): every expert leaf on its slot
+    axis, each expert's factors whole; the router stays whole."""
     _, tc, _, tp = _model("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tp_plan(tp, tc, types.SimpleNamespace(model=2))
+    plan = tp_plan(tp, tc, types.SimpleNamespace(model=2))
+    assert plan.experts and plan.groups()["experts"]
+    moe = "decoder/layers/moe"
+    E = tc.moe.n_slots
+    for name in ("w1", "wg", "w2"):
+        for kind, ax in (("L", -4), ("R", -4)):
+            leaf = tp["decoder"]["layers"]["moe"]["experts"][name][kind]
+            assert split_parts(f"{moe}/experts/{name}/{kind}", leaf.shape,
+                               plan) == (ax, ((E, True),))
+    router = tp["decoder"]["layers"]["moe"]["router"]["w"]
+    assert split_parts(f"{moe}/router/w", router.shape, plan) is None
 
 
 def test_init_params_stacks_the_experts():
