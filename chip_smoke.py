@@ -112,7 +112,8 @@ Phases, each printed as one JSON object per line:
               card vs CPU; the float serves of phases 3 and 3c priced by
               the HBM cost model (the H100's data-sheet rates) and the CIM
               cost model, each engine's calibration printed; and
-              ``python -m repro_torch.examples.quickstart`` on the card
+              ``python -m repro_torch.examples.quickstart`` and
+              ``python -m repro_torch.examples.d2s_convert`` on the card
   3e. ft      fault-tolerant serving of gpt2-medium at full width (bf16,
               seed 0, phase 3's geometry, 768 MiB pool and 8-request
               trace; odd requests sampled at 0.8): snapshots with prefill
@@ -210,6 +211,29 @@ Phases, each printed as one JSON object per line:
               peak memory, the top 5 device ops; a pallas-backend Monarch
               layer whose factors require grad refusing autograd
               (``--train`` runs the build and this phase alone)
+  3j. mesh    training under a (data 2 x model 2) mesh: four gloo ranks
+              sharing the card (launch.mesh.run_ranks), the einsum
+              backend, no kernel launches: gpt2-medium at full width and
+              depth, fp32, 8 x 1024 global batch (each data rank its 4
+              rows), each rank's state drawn as its shards
+              (init_params(plan=): equal to its slices of the whole
+              draw); the first step's loss within PARITY_REL_TOL and
+              every leaf of its clipped gradient (read from the first
+              moment), put back together, within TRAIN_GRAD_TOL of its
+              max |g| of the single-process step on the card; 3 AdamW
+              steps (clipping active): metrics
+              within PARITY_REL_TOL, the stepped masters and moments
+              put back together at tests/test_torch_train.py's limits;
+              granite-moe-1b-a400m at full width cut to 2 layers the
+              same way (routes first); gpt2-medium bf16 as a reading
+              (3 steps: loss, wall and device ms, collectives a step);
+              each rank's peak memory beside its prediction; granite's
+              Trainer checkpoint saved under the mesh (whole leaves,
+              rank 0 writes): every rank's shards restored from it
+              torch.equal to the state it saved, and resumed by one
+              process, its losses within PARITY_REL_TOL of the mesh
+              run's (the two sum in other orders)
+              (``--train-mesh`` runs the build and this phase alone)
   4. parity   the same fp32 weights on the card and on the CPU (plain
               versions): one mixed step's logits (eagerly, then 5 replays
               of it captured as a CUDA graph; both sides' distance from
@@ -3391,6 +3415,466 @@ def _phase_train(dev) -> None:
     require(not counts, f"phase 3i launched kernels: {counts}")
 
 
+# -- phase 3j: training under the ("data", "model") mesh --------------------
+
+TM_DATA, TM_MODEL = 2, 2           # four gloo ranks sharing cuda:0
+TM_SEQ, TM_BATCH = 1024, 8         # phase 3i's global batch, 8 x 1024
+TM_HELD_STEPS, TM_BF16_STEPS = 3, 3
+# AdamW with clipping active (a step's norm is above 1 at these inits);
+# eps 1e-4 keeps each element's step a smooth function of its gradient,
+# where the default's g / (|g| + 1e-8) turns a gradient within rounding
+# of 0 into a whole lr (tests/test_torch_train_mesh.py)
+TM_OPT = dict(lr=1e-3, clip_norm=1.0, eps=1e-4)
+TM_GRANITE_LAYERS = 2
+TM_CKPT_STEPS, TM_CKPT_AT = 4, 2
+TM_DIR = ROOT / "build" / "train_mesh_ckpt"
+# tests/test_torch_train.py's limits for a stepped state
+TM_STATE_TOL = dict(rtol=2e-4, atol=2e-5)
+TM_NU_TOL = dict(rtol=2e-4, atol=1e-9)
+
+
+def _tm_cfgs() -> dict:
+    """Phase 3j's configs: gpt2-medium as published (24 layers, d 1024,
+    the paper's Monarch projections, remat "full") in fp32 and in its
+    bf16 compute, granite-moe-1b-a400m at full width cut to
+    TM_GRANITE_LAYERS, fp32."""
+    from repro_torch.configs import get_config
+
+    gpt2 = _train_gpt2_cfg()
+    return {"gpt2_fp32": dataclasses.replace(gpt2, dtype="float32"),
+            "gpt2_bf16": gpt2,
+            "granite_fp32": dataclasses.replace(
+                get_config("granite-moe-1b-a400m"),
+                n_layers=TM_GRANITE_LAYERS, dtype="float32")}
+
+
+def _tm_batches(cfg, n: int, seed: int) -> list:
+    from repro_torch.data import DataConfig, make_batches
+
+    it = make_batches(DataConfig(vocab=cfg.vocab, seq_len=TM_SEQ,
+                                 global_batch=TM_BATCH, seed=seed),
+                      prefetch=0)
+    return [next(it) for _ in range(n)]
+
+
+def _tm_host_batches(cfg, data: int, skip: int = 0):
+    """The global batches a Trainer's ``data`` data ranks read together
+    (each its host's stream, ``Trainer.host_data``), from the ``skip``-th."""
+    import numpy as np
+
+    from repro_torch.data import DataConfig, make_batches
+
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TM_SEQ,
+                      global_batch=TM_BATCH, seed=13)
+    hosts = [make_batches(dataclasses.replace(dcfg, host_count=data,
+                                              host_index=d), prefetch=0)
+             for d in range(data)]
+    for _ in range(skip):
+        for h in hosts:
+            next(h)
+    while True:
+        parts = [next(h) for h in hosts]
+        yield {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _tm_fingerprint(tree) -> dict:
+    """{path: (float64 sum, float64 sum of squares)} of a tree's leaves on
+    the host: equal trees give equal prints."""
+    from repro_torch.optim.adamw import leaves_with_paths
+
+    out = {}
+    for path, t in leaves_with_paths(tree):
+        t = t.detach().double().cpu()
+        out["/".join(path)] = (float(t.sum()), float((t * t).sum()))
+    return out
+
+
+def _tm_host(tree) -> dict:
+    from repro_torch import tree_map
+
+    return tree_map(lambda t: t.detach().float().cpu(), tree)
+
+
+def _tm_held(mesh, dev, cfg, batches) -> dict:
+    """A held run on one side: TM_HELD_STEPS AdamW steps: metrics, the
+    stepped state, on the host; the first step's loss, its gradients
+    read from its first moment (one step from zeros leaves ``mu = (1 -
+    b1) g`` of the clipped gradient, the clip's scale one number on
+    either side) and an MoE model's routes recorded in it.  Under ``mesh``
+    the state is drawn as this rank's shards and the batches cut to its
+    rows."""
+    import torch
+
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves_with_paths
+
+    init, step = S.make_train_step(cfg, adamw(**TM_OPT), mesh=mesh)
+    state = init(0, device=dev)
+    init_print = _tm_fingerprint(state["params"])
+    # one process: its whole first draw, for the ranks' shards to match
+    init_whole = None if mesh is not None else {
+        "/".join(p): t.detach().cpu()
+        for p, t in leaves_with_paths(state["params"])}
+    metrics, walls, routes = [], [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as ctx:
+            if cfg.moe and i == 0:
+                ctx.enter_context(_recording_routes(routes))
+            state, m = step(state, b if mesh is None
+                            else S.shard_batch(b, mesh))
+            metrics.append({k: float(v) for k, v in m.items()})
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = _tm_host(state["opt"].mu)
+    return {"loss": metrics[0]["loss"], "lb_loss": metrics[0]["lb_loss"],
+            "grads": grads, "routes": routes, "metrics": metrics,
+            "step_wall_ms": walls, "init_print": init_print,
+            "init_whole": init_whole,
+            "params": _tm_host(state["params"]),
+            "mu": _tm_host(state["opt"].mu), "nu": _tm_host(state["opt"].nu)}
+
+
+def _tm_reading(mesh, dev, cfg, batches) -> dict:
+    """gpt2-medium in bf16 under the mesh, a reading: each step's loss,
+    wall ms (synchronized) and collectives; the last step's device ms
+    from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import api
+
+    init, step = S.make_train_step(cfg, adamw(**TM_OPT), mesh=mesh)
+    state = init(0, device=dev)
+    out = {"loss": [], "step_wall_ms": [], "collectives": []}
+    for i, b in enumerate(batches):
+        last = i == len(batches) - 1
+        api.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CUDA]) if last
+              else contextlib.nullcontext()) as prof:
+            state, m = step(state, S.shard_batch(b, mesh))
+            out["loss"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+        out["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["collectives"].append(api.collectives())
+    out["last_step_device_ms"] = sum(
+        (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA) / 1e3
+    return out
+
+
+def _tm_state_leaves(state) -> list:
+    from repro_torch.optim.adamw import leaves_with_paths
+
+    opt = state["opt"]
+    return [opt.step] + [t for tree in (state["params"], opt.mu, opt.nu)
+                         for _, t in leaves_with_paths(tree)]
+
+
+def _tm_trainer(mesh, dev, cfg, ckpt_dir: str, steps: int,
+                skip: int = 0) -> dict:
+    """A Trainer over the data ranks' host streams (one process: their
+    concatenation), checkpointing every TM_CKPT_AT steps: its (step, loss)
+    pairs; under ``mesh`` also whether this rank's shards restored from
+    the last checkpoint are torch.equal to the state it saved."""
+    import torch
+
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.train import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(steps=steps, peak_lr=1e-3, warmup=1, log_every=0,
+                         ckpt_every=TM_CKPT_AT, ckpt_dir=ckpt_dir,
+                         keep_last=2)
+    trainer = Trainer(cfg, tcfg, mesh=mesh, device=None if mesh else dev)
+    if mesh is None:
+        batches = _tm_host_batches(cfg, TM_DATA, skip)
+    else:
+        batches = make_batches(trainer.host_data(DataConfig(
+            vocab=cfg.vocab, seq_len=TM_SEQ, global_batch=TM_BATCH,
+            seed=13)), prefetch=0)
+    state = trainer.run(batches)
+    out = {"losses": [(h["step"], h["loss"]) for h in trainer.history]}
+    if mesh is not None:
+        restored, at = trainer.resume_or_init()
+        out["restored_equal"] = at == steps and all(
+            torch.equal(a, b) for a, b in zip(_tm_state_leaves(state),
+                                              _tm_state_leaves(restored)))
+    return out
+
+
+def _tm_rank(mesh, jobs: dict) -> dict:
+    """One rank of phase 3j, each job with this process's peak memory
+    while it ran and the kernel launches it made (none: the einsum
+    backend)."""
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {}
+    for name, job in jobs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        if job["kind"] == "held":
+            res = _tm_held(mesh, dev, job["cfg"], job["batches"])
+        elif job["kind"] == "reading":
+            res = _tm_reading(mesh, dev, job["cfg"], job["batches"])
+        else:
+            res = _tm_trainer(mesh, dev, job["cfg"], job["ckpt_dir"],
+                              job["steps"])
+        res.update(seconds=time.perf_counter() - t0,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                   launches=sum(launches().values()))
+        out[name] = res
+    return out
+
+
+def _tm_prediction(cfg, mesh) -> dict:
+    """A rank's predicted peak, in bytes, from its placements: the fp32
+    shards of the masters, both moments and the gradient; the gathered
+    "model" part of the tree and its gradient; and the activations --
+    remat "full" keeps each layer's input (B_rank x S x d, the compute
+    dtype), the whole fp32 logits (B_rank x S x Vp) three times (the
+    gathered logits, the log-softmax's and their gradient) and one
+    layer's recompute."""
+    import math
+
+    from repro_torch.launch.steps import train_plan
+
+    _, table = train_plan(cfg, mesh)
+    shard = sum(math.prod(p.shard) for p in table.values()) * 4
+    local = sum(math.prod(p.shard) * (mesh.data if p.fsdp is not None
+                                      else 1) for p in table.values()) * 4
+    rows = TM_BATCH // mesh.data
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    layer_in = rows * TM_SEQ * cfg.d_model * act * cfg.n_layers
+    logits = rows * TM_SEQ * cfg.vocab_padded * 4 * 3
+    # one layer recomputed: its projections' outputs and the attention
+    # scores of its heads (B_rank x H / model x S x S, fp32)
+    heads = cfg.n_heads // mesh.model
+    layer = (rows * heads * TM_SEQ * TM_SEQ * 4 * 2
+             + rows * TM_SEQ * (4 * cfg.d_model + 2 * cfg.d_ff) * act)
+    return {"shards_gb": 4 * shard / 1e9, "gathered_gb": 2 * local / 1e9,
+            "activations_gb": (layer_in + logits + layer) / 1e9,
+            "total_gb": (4 * shard + 2 * local + layer_in + logits + layer)
+            / 1e9}
+
+
+def _tm_held_line(name, cfg, one: dict, ranks: list, card: str) -> dict:
+    """A held job's line: the ranks' loss and metrics against the
+    single-process step's (PARITY_REL_TOL), every gradient leaf put back
+    together within TRAIN_GRAD_TOL of its max |g|, the stepped state at
+    TM_STATE_TOL / TM_NU_TOL, each rank's first draw equal to its slices
+    of the whole one; an MoE model's routes first."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import train_plan
+    from repro_torch.optim.adamw import leaves_with_paths
+    from repro_torch.sharding.params import shard_leaf, unshard_leaf
+
+    plans = [train_plan(cfg, Mesh(model=TM_MODEL, data=TM_DATA, rank=r,
+                                  device="cpu")) for r in range(len(ranks))]
+    plan0, table = plans[0]
+
+    def whole(key, path):
+        parts = []
+        for r in ranks:
+            t = r[key]
+            for k in path:
+                t = t[k]
+            parts.append(t)
+        return unshard_leaf(parts, table["/".join(path)], plan0)
+
+    line = {"phase": "train_mesh_held", "job": name, "model": cfg.name,
+            "layers": cfg.n_layers, "dtype": cfg.dtype, "remat": cfg.remat,
+            "mesh": {"data": TM_DATA, "model": TM_MODEL},
+            "batch": [TM_BATCH, TM_SEQ], "opt": TM_OPT,
+            "loss": {"single": one["loss"],
+                     "ranks": [r["loss"] for r in ranks]}}
+    if cfg.moe:
+        # the model ranks of a data index route alike; the data ranks'
+        # groups in order are the whole batch's
+        by_data = [ranks[d * TM_MODEL]["routes"] for d in range(TM_DATA)]
+        joined = [{"probs": torch.cat([c[i]["probs"] for c in by_data]),
+                   "idx": torch.cat([c[i]["idx"] for c in by_data]),
+                   "kept": torch.cat([c[i]["kept"] for c in by_data]),
+                   "k": by_data[0][i]["k"]}
+                  for i in range(len(by_data[0]))]
+        line["routes"] = _route_check(joined, one["routes"],
+                                      f"train mesh {name}")
+        line["lb_loss"] = {"single": one["lb_loss"],
+                           "ranks": [r["lb_loss"] for r in ranks]}
+    rel = [abs(x - one["loss"]) / abs(one["loss"])
+           for x in line["loss"]["ranks"]]
+    steps_rel = {k: max(abs(r["metrics"][i][k] - m[k]) / max(abs(m[k]),
+                                                              1e-30)
+                        for r in ranks for i, m in enumerate(one["metrics"]))
+                 for k in one["metrics"][0]}
+    worst = ("", 0.0)
+    for path, g in leaves_with_paths(one["grads"]):
+        e = float((whole("grads", path) - g).abs().max()) / max(
+            float(g.abs().max()), 1e-30)
+        if e > worst[1]:
+            worst = ("/".join(path), e)
+    state = {}
+    for key, tol in (("params", TM_STATE_TOL), ("mu", TM_STATE_TOL),
+                     ("nu", TM_NU_TOL)):
+        bad, n = 0, 0
+        for path, want in leaves_with_paths(one[key]):
+            got = whole(key, path)
+            bad += int(((got - want).abs()
+                        > tol["atol"] + tol["rtol"] * want.abs()).sum())
+            n += want.numel()
+        state[key] = {"outside_tol": bad, "elements": n, **tol}
+    init_equal = all(
+        ranks[r]["init_print"] == {
+            p: v for p, v in _tm_fingerprint(
+                {p: shard_leaf(one["init_whole"][p], table[p], plans[r][0])
+                 for p in table}).items()}
+        for r in range(len(ranks)))
+    line.update(loss_rel=max(rel), metrics_max_rel=steps_rel,
+                grads={"worst_leaf": worst[0], "worst_rel_to_max": worst[1]},
+                state=state, init_shards_equal_slices=init_equal,
+                single_step_wall_ms=one["step_wall_ms"],
+                rank_step_wall_ms=[r["step_wall_ms"] for r in ranks],
+                loss_tol=PARITY_REL_TOL, grad_tol=TRAIN_GRAD_TOL, card=card)
+    emit(line)
+    require(max(rel) <= PARITY_REL_TOL and all(
+        v <= PARITY_REL_TOL for v in steps_rel.values()),
+        f"train mesh {name}: loss or metrics apart: {line['loss']} "
+        f"{steps_rel}")
+    require(worst[1] <= TRAIN_GRAD_TOL,
+            f"train mesh {name}: gradients apart: {line['grads']}")
+    require(all(v["outside_tol"] == 0 for v in state.values()),
+            f"train mesh {name}: stepped state apart: {state}")
+    require(init_equal, f"train mesh {name}: a rank's drawn shards are not "
+            f"its slices of the whole draw")
+    return line
+
+
+def _phase_train_mesh(dev) -> None:
+    """Phase 3j: training under a (data 2 x model 2) mesh, four gloo ranks
+    sharing the card.  gpt2-medium at full width and depth in fp32 and
+    granite-moe-1b-a400m at full width cut to 2 layers are held to the
+    single-process step on the card (run first, in this process, on the
+    same seed-0 draw and global batches); gpt2-medium in bf16 is a
+    reading over TM_BF16_STEPS steps; granite's Trainer checkpoints under
+    the mesh, every rank's restored shards equal the state it saved, and
+    one process resumes it.  The einsum backend: no kernel
+    launches in the phase."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import Mesh, run_ranks
+
+    card = _card_line()
+    reset_launches()
+    cfgs = _tm_cfgs()
+    shutil.rmtree(TM_DIR, ignore_errors=True)
+    held = {"gpt2_fp32": _tm_batches(cfgs["gpt2_fp32"], TM_HELD_STEPS, 11),
+            "granite_fp32": _tm_batches(cfgs["granite_fp32"], TM_HELD_STEPS,
+                                        12)}
+    t0 = time.perf_counter()
+    one = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, batches in held.items():
+        torch.cuda.empty_cache()
+        one[name] = _tm_held(None, dev, cfgs[name], batches)
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    jobs = {name: {"kind": "held", "cfg": cfgs[name], "batches": b}
+            for name, b in held.items()}
+    jobs["gpt2_bf16"] = {"kind": "reading", "cfg": cfgs["gpt2_bf16"],
+                         "batches": _tm_batches(cfgs["gpt2_bf16"],
+                                                TM_BF16_STEPS, 14)}
+    jobs["granite_ckpt"] = {"kind": "trainer", "cfg": cfgs["granite_fp32"],
+                            "ckpt_dir": str(TM_DIR / "mesh"),
+                            "steps": TM_CKPT_STEPS}
+    ranks = run_ranks(_tm_rank, TM_DATA * TM_MODEL, backend="gloo",
+                      device="cuda:0", data=TM_DATA, args=(jobs,),
+                      timeout_s=900)
+    t2 = time.perf_counter()
+    pred_mesh = Mesh(model=TM_MODEL, data=TM_DATA, device="cpu")
+    emit({"phase": "train_mesh_world", "ranks": TM_DATA * TM_MODEL,
+          "mesh": {"data": TM_DATA, "model": TM_MODEL}, "backend": "gloo",
+          "device": "cuda:0 (shared)", "single_seconds": t1 - t0,
+          "world_seconds": t2 - t1,
+          "job_seconds": {j: [r[j]["seconds"] for r in ranks]
+                          for j in jobs},
+          "note": "four ranks time-slice one card over gloo: not "
+                  "data-parallel speeds",
+          "max_memory_allocated_gb": {
+              j: [r[j]["max_memory_allocated"] / 1e9 for r in ranks]
+              for j in jobs},
+          "predicted_peak_gb": {
+              j: _tm_prediction(jobs[j]["cfg"], pred_mesh)
+              for j in ("gpt2_fp32", "gpt2_bf16", "granite_fp32")},
+          "card": card})
+    for name in held:
+        _tm_held_line(name, cfgs[name], one[name],
+                      [r[name] for r in ranks], card)
+    rd = [r["gpt2_bf16"] for r in ranks]
+    emit({"phase": "train_mesh_reading", "model": "gpt2-medium",
+          "dtype": "bfloat16", "remat": cfgs["gpt2_bf16"].remat,
+          "batch": [TM_BATCH, TM_SEQ], "loss": rd[0]["loss"],
+          "ranks_same_loss": all(r["loss"] == rd[0]["loss"] for r in rd),
+          "step_wall_ms": [r["step_wall_ms"] for r in rd],
+          "last_step_device_ms": [r["last_step_device_ms"] for r in rd],
+          "collectives_per_step": rd[0]["collectives"][-1],
+          "max_memory_allocated_gb": [
+              r["max_memory_allocated"] / 1e9 for r in rd],
+          "card": card})
+    require(all(r["loss"] == rd[0]["loss"] for r in rd)
+            and all(math.isfinite(x) for x in rd[0]["loss"]),
+            "train mesh bf16: ranks' losses differ or are not finite")
+    # granite's mesh checkpoint at TM_CKPT_AT resumed by one process
+    mesh_losses = ranks[0]["granite_ckpt"]["losses"]
+    src = TM_DIR / "mesh" / f"step_{TM_CKPT_AT:08d}"
+    dst = TM_DIR / "single" / src.name
+    shutil.copytree(src, dst)
+    again = _tm_trainer(None, dev, cfgs["granite_fp32"], str(dst.parent),
+                        TM_CKPT_STEPS, skip=TM_CKPT_AT)["losses"]
+    want = mesh_losses[TM_CKPT_AT:]
+    diff = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(again, want))
+    emit({"phase": "train_mesh_checkpoint", "model": cfgs["granite_fp32"]
+          .name, "layers": TM_GRANITE_LAYERS, "saved_at": TM_CKPT_AT,
+          "mesh_losses": mesh_losses, "single_resumed": again,
+          "max_rel": diff, "tol": PARITY_REL_TOL,
+          "ranks_same": all(r["granite_ckpt"]["losses"] == mesh_losses
+                            for r in ranks),
+          "restored_shards_equal": [r["granite_ckpt"]["restored_equal"]
+                                    for r in ranks], "card": card})
+    require(all(r["granite_ckpt"]["restored_equal"] for r in ranks),
+            "train mesh: a rank's shards restored from its checkpoint are "
+            "not the state it saved")
+    require([s for s, _ in again] == [s for s, _ in want]
+            and diff <= PARITY_REL_TOL,
+            f"train mesh: the mesh checkpoint resumed on one process gives "
+            f"{again}, the mesh run {want}")
+    shutil.rmtree(TM_DIR, ignore_errors=True)
+    counts = {k: v for k, v in launches().items() if v}
+    rank_launches = {j: [r[j]["launches"] for r in ranks] for j in jobs}
+    emit({"phase": "train_mesh_launches", "launches": counts,
+          "rank_launches": rank_launches, "card": card})
+    require(not counts and not any(any(v) for v in rank_launches.values()),
+            f"phase 3j launched kernels: {counts} {rank_launches}")
+
+
 def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
     """A rank of phase 5's snapshots: the tp = 1 snapshot under
     ``tp1_dir`` restored on this mesh and served to the end (its finished
@@ -3877,6 +4361,13 @@ def main() -> int:
     if "--train" in sys.argv[1:]:
         # the training phase alone
         _phase_train(dev)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "card": _card_line()})
+        return 0
+
+    if "--train-mesh" in sys.argv[1:]:
+        # phase 3j alone
+        _phase_train_mesh(dev)
         emit({"phase": "done", "seconds": time.perf_counter() - t_start,
               "card": _card_line()})
         return 0
@@ -5992,6 +6483,24 @@ def main() -> int:
     require(code == 0 and lines[-1] == "quickstart OK"
             and launches()["monarch_fused"] > 0,
             "the quickstart did not end with 'quickstart OK' through B1")
+
+    # the D2S conversion example, as ``python -m
+    # repro_torch.examples.d2s_convert`` runs it, on the card
+    buf = io.StringIO()
+    argv, sys.argv = sys.argv, ["d2s_convert"]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("repro_torch.examples.d2s_convert",
+                             run_name="__main__", alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = argv
+    lines = buf.getvalue().strip().splitlines()
+    emit({"phase": "d2s_convert_example", "exit": code, "lines": lines})
+    require(code == 0 and lines[-1] == "d2s_convert OK",
+            "the d2s_convert example did not end with 'd2s_convert OK'")
     phase_done("3d CIM, calibration and quickstart")
 
     # -- 3e. fault-tolerant serving ---------------------------------------
@@ -6026,6 +6535,14 @@ def main() -> int:
     _phase_train(dev)
     torch.cuda.empty_cache()
     phase_done("3i training")
+
+    # -- 3j. training under a (data 2 x model 2) mesh: four gloo ranks on
+    # the card held to the single-process step (gpt2-medium fp32 at full
+    # width and depth, granite-moe-1b-a400m fp32 at 2 layers), gpt2-medium
+    # bf16 as a reading, granite's mesh checkpoint resumed by one process
+    _phase_train_mesh(dev)
+    torch.cuda.empty_cache()
+    phase_done("3j training under the mesh")
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")

@@ -28,13 +28,14 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` by default, the CPU only
-    when asked for by name.  Raises when CUDA is wanted but absent."""
+    when asked for by name (``meta``, shapes alone, when asked for so).
+    Raises when CUDA is wanted but absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device and none is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

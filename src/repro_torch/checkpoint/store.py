@@ -29,6 +29,14 @@ converting values: a ``"bfloat16"`` leaf becomes ``torch.bfloat16``, and a
 when ``like`` asks for int32.  ``device=`` places the restored tensors (the
 counterpart of the reference's ``shardings=``; a tensor-parallel engine
 re-slices its pool through ``serving.device_kv.DeviceKV.load``).
+
+A state sharded over a ``("data", "model")`` mesh is saved and restored
+in the same layout, whole leaves: every rank calls
+``save_checkpoint(whole=...)``, which puts one leaf at a time back
+together from every rank's shard (a collective), and only the rank
+passing ``write=True`` writes; every rank restores its own shards of the
+whole leaves (``restore_checkpoint(shard=...)``).  So a run saved under
+a mesh resumes on one process, and the reverse.
 """
 
 from __future__ import annotations
@@ -110,7 +118,16 @@ def _write_npy(path: Path, arr: np.ndarray, descr: Optional[str]) -> None:
 
 
 def save_checkpoint(directory, step: int, state, keep_last: int = 3,
-                    extra: Optional[dict] = None) -> Path:
+                    extra: Optional[dict] = None, whole=None,
+                    write: bool = True) -> Optional[Path]:
+    """Write ``state`` as ``step``.  ``whole(leaf_id, leaf)``, where
+    given, is called for every leaf in order (on every rank of a mesh)
+    and returns the whole leaf that is written; a rank with
+    ``write=False`` writes nothing and returns None."""
+    if not write:
+        for pid, leaf in _leaves_with_paths(state):
+            whole(pid, leaf)
+        return None
     directory = Path(directory)
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp"
@@ -120,7 +137,8 @@ def save_checkpoint(directory, step: int, state, keep_last: int = 3,
 
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
     for pid, leaf in _leaves_with_paths(state):
-        arr, dtype, descr = _to_numpy(leaf)
+        arr, dtype, descr = _to_numpy(leaf if whole is None
+                                      else whole(pid, leaf))
         _write_npy(tmp / f"{pid}.npy", arr, descr)
         manifest["leaves"][pid] = {
             "shape": list(arr.shape),
@@ -182,10 +200,12 @@ def _as_like(arr: np.ndarray, meta: dict, like: torch.Tensor, pid: str):
 
 
 def restore_checkpoint(directory, step: int, like,
-                       device: DeviceLike = None):
+                       device: DeviceLike = None, shard=None):
     """Restore into the structure of ``like``, a tree of tensors (meta
     tensors will do: only their dtypes and shapes are read); the leaves
-    land on ``device`` (default: the CPU).  Returns (state, manifest)."""
+    land on ``device`` (default: the CPU).  ``shard(leaf_id, leaf)``,
+    where given, cuts each whole leaf read to what this rank keeps
+    (``like`` then has the whole shapes).  Returns (state, manifest)."""
     src = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((src / "manifest.json").read_text())
     leaves = {}
@@ -198,6 +218,8 @@ def restore_checkpoint(directory, step: int, like,
         if crc != meta["crc32"]:
             raise IOError(f"checkpoint leaf {pid} corrupt (crc mismatch)")
         out = _as_like(arr, meta, leaf, pid)
+        if shard is not None:
+            out = shard(pid, out)
         if device is not None:
             out = out.to(device)
         leaves[pid] = out

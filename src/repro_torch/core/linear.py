@@ -24,8 +24,10 @@ einsum backend) or one expert-batched kernel launch (``kernels.ops``).
 
 Tensor parallelism follows the Megatron pairs of ``sharding.params``: a
 column-parallel linear is a smaller linear of the same kind and needs
-nothing here; a row-parallel one passes ``reduce=`` its mesh and ends in
-an all-reduce.
+nothing here (its caller marks its whole input, ``sharding.api.copy_to``,
+so that the input's gradient is summed over the ranks); a row-parallel
+one passes ``reduce=`` its mesh and ends in an all-reduce whose gradient
+passes through (``sharding.api.reduce_from``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.core import monarch as mn
 from repro_torch.core import quant as qn
-from repro_torch.sharding.api import all_reduce_sum
+from repro_torch.sharding.api import reduce_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +124,7 @@ def linear_apply(params: dict[str, Any], x: torch.Tensor,
         dt = torch.promote_types(x.dtype, w.dtype)
         y = torch.matmul(x.to(dt), w.to(dt))
     if reduce is not None:
-        y = all_reduce_sum(y, reduce)
+        y = reduce_from(y, reduce.group)
     if "b" in params:
         y = y + params["b"]
     return y

@@ -1,12 +1,16 @@
-"""The ``("data", "model")`` mesh of a tensor-parallel run (port of
-``repro.launch.mesh``).
+"""The ``("data", "model")`` mesh of a data- and tensor-parallel run (port
+of ``repro.launch.mesh``).
 
 The reference is single-controller: one process sees every device and
 ``jax.make_mesh`` names them.  The port is SPMD over ``torch.distributed``:
 every rank is a process of its own, and a :class:`Mesh` is one rank's view
-of the world — the axis sizes, its rank, its device and its process
-groups.  Only ``data = 1`` is ported: the ``"model"`` axis spans the whole
-world, so rank ``r`` holds shard ``r`` of every split tensor.
+of the world -- the axis sizes, its rank, its device and its process
+groups.  World rank ``r`` sits at ``(r // model, r % model)``: its data
+index and its model index.  The ranks of one data index form its model
+group (``group``: tensor parallelism; rank ``m`` of it holds shard ``m`` of
+every split tensor); the ranks of one model index form its data group
+(``data_group``: data parallelism and FSDP).  At ``data = 1`` the model
+group is the whole world.
 
 The backend is always named by the caller, never picked: ``"gloo"`` for
 CPU ranks and for several ranks that share one card (NCCL refuses two
@@ -49,15 +53,17 @@ def rank_device(device: DeviceLike = None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a ``("data", "model")`` mesh.
+    """One rank's view of a ``("data", "model")`` mesh: ``rank`` is the
+    world rank, at (:attr:`data_rank`, :attr:`model_rank`).
 
     ``device`` is resolved as every entry point's is: ``cuda`` unless the
-    caller passes the CPU.  ``group`` carries the device tensors'
-    collectives on ``backend``; ``host_group`` (gloo) carries host values
-    such as the engine's clock, so they never wait on the device.  A mesh
-    without groups (``group is None``) is a rank's shape alone: what a
-    kernel wrapper or ``shard_params`` needs, but nothing can serve on it
-    (the engine refuses it); :func:`make_host_mesh` joins the world."""
+    caller passes the CPU.  ``group`` (the model group) and
+    ``data_group`` carry the device tensors' collectives on ``backend``;
+    ``host_group`` (gloo, the whole world) carries host values such as the
+    engine's clock, so they never wait on the device.  A mesh without
+    groups (``group is None``) is a rank's shape alone: what a kernel
+    wrapper or ``shard_params`` needs, but nothing can serve or train on
+    it; :func:`make_host_mesh` joins the world."""
 
     model: int
     rank: int = 0
@@ -67,14 +73,16 @@ class Mesh:
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
     host_group: Any = dataclasses.field(default=None, compare=False,
                                         repr=False)
+    data_group: Any = dataclasses.field(default=None, compare=False,
+                                        repr=False)
 
     def __post_init__(self) -> None:
-        if self.data != 1:
-            raise NotImplementedError(
-                "a 'data' axis > 1 is not ported yet (data = 1 only)")
-        if self.model < 1 or not 0 <= self.rank < self.model:
-            raise ValueError(f"rank {self.rank} outside a {self.model}-way "
-                             f"'model' axis")
+        if self.model < 1 or self.data < 1:
+            raise ValueError(f"axis sizes must be >= 1, got data "
+                             f"{self.data} x model {self.model}")
+        if not 0 <= self.rank < self.model * self.data:
+            raise ValueError(f"rank {self.rank} outside a {self.data} x "
+                             f"{self.model} ('data', 'model') mesh")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{self.backend!r}")
@@ -83,11 +91,46 @@ class Mesh:
             raise ValueError("the nccl backend needs a CUDA device per rank")
         object.__setattr__(self, "device", dev)
 
+    @property
+    def model_rank(self) -> int:
+        """This rank's index on the ``"model"`` axis (its shard)."""
+        return self.rank % self.model
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index on the ``"data"`` axis (its rows)."""
+        return self.rank // self.model
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
+
+
+def _axis_groups(model: int, data: int, rank: int, backend: str):
+    """(model group, data group) of world rank ``rank``: at ``data = 1``
+    the world and None.  Every rank creates every group, in the same
+    order (``dist.new_group`` is collective)."""
+    if data == 1:
+        return dist.group.WORLD, None
+    mine = [None, None]
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)],
+                           backend=backend, timeout=COLLECTIVE_TIMEOUT)
+        if d == rank // model:
+            mine[0] = g
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)],
+                           backend=backend, timeout=COLLECTIVE_TIMEOUT)
+        if m == rank % model:
+            mine[1] = g
+    return mine[0], mine[1]
+
 
 def make_host_mesh(*, model: int, rank: int, backend: str,
                    store: dist.Store, device: DeviceLike = None,
                    data: int = 1) -> Mesh:
-    """Join a ``model``-rank world as ``rank`` and return its mesh.
+    """Join a ``data x model``-rank world as world rank ``rank`` and return
+    its mesh.
 
     ``store`` is the rendezvous the ranks share (a ``FileStore``, or a
     ``TCPStore`` on ``localhost:<port>``); ``device`` is this rank's device
@@ -105,14 +148,16 @@ def make_host_mesh(*, model: int, rank: int, backend: str,
     if dist.get_world_size() != model * data or dist.get_rank() != rank:
         raise ValueError(
             f"process group is rank {dist.get_rank()} of "
-            f"{dist.get_world_size()}, mesh asks rank {rank} of {model}")
+            f"{dist.get_world_size()}, mesh asks rank {rank} of a "
+            f"{data} x {model} mesh")
     if dist.get_backend() != backend:
         raise ValueError(f"process group runs {dist.get_backend()}, mesh "
                          f"asks {backend}")
-    group = dist.group.WORLD
-    host = group if backend == "gloo" else dist.new_group(
+    group, data_group = _axis_groups(model, data, rank, backend)
+    host = dist.group.WORLD if backend == "gloo" else dist.new_group(
         backend="gloo", timeout=COLLECTIVE_TIMEOUT)
-    return dataclasses.replace(mesh, group=group, host_group=host)
+    return dataclasses.replace(mesh, group=group, data_group=data_group,
+                               host_group=host)
 
 
 # ---------------------------------------------------------------------------
@@ -121,13 +166,14 @@ def make_host_mesh(*, model: int, rank: int, backend: str,
 
 
 def _rank_main(fn, rank: int, world: int, backend: str, device, store_path,
-               out_path, args) -> None:
+               out_path, args, data: int = 1) -> None:
     """A rank's process: an exception prints its traceback and exits 1
     (``multiprocessing`` does both)."""
     try:
         store = dist.FileStore(str(store_path), world)
-        mesh = make_host_mesh(model=world, rank=rank, backend=backend,
-                              store=store, device=device)
+        mesh = make_host_mesh(model=world // data, rank=rank,
+                              backend=backend, store=store, device=device,
+                              data=data)
         torch.save(fn(mesh, *args), out_path)
         # no rank tears its process group down while a peer still talks
         # to it (gloo can abort the process at exit otherwise)
@@ -140,22 +186,25 @@ def _rank_main(fn, rank: int, world: int, backend: str, device, store_path,
 def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
               device: DeviceLike = None, args: Sequence = (),
               workdir: Optional[os.PathLike] = None,
-              timeout_s: float = 600.0) -> list:
+              timeout_s: float = 600.0, data: int = 1) -> list:
     """Run ``fn(mesh, *args)`` on ``world`` ranks, one spawned process
     each, over ``backend`` on ``device`` (every rank on the same device:
-    the CPU, or one card shared by all).  Returns each rank's return value
+    the CPU, or one card shared by all), as a ``data x (world / data)``
+    mesh (``data`` must divide ``world``).  Returns each rank's return value
     in rank order (through ``torch.save``, so tensors and plain Python
     values travel).  ``fn`` must be importable by name from a fresh
     process.  Every process is joined before this returns; if any rank
     exits non-zero or outlives ``timeout_s``, the others are stopped and
     this raises."""
+    if data < 1 or world % data:
+        raise ValueError(f"data={data} does not divide the {world} ranks")
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         tmp = Path(tmp)
         outs = [tmp / f"rank{r}.pt" for r in range(world)]
         procs = [ctx.Process(target=_rank_main, args=(
             fn, r, world, backend, device, tmp / "store", outs[r],
-            tuple(args))) for r in range(world)]
+            tuple(args), data)) for r in range(world)]
         for p in procs:
             p.start()
         t_end = time.monotonic() + timeout_s

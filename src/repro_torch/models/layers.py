@@ -67,7 +67,8 @@ from repro_torch.core.quant import dequantize_kv_pages
 from repro_torch.kernels import kv_write
 from repro_torch.kernels.paged import GLOBAL_WINDOW
 from repro_torch.models.config import ModelConfig, MoEConfig
-from repro_torch.sharding.api import all_gather_cat, all_reduce_sum
+from repro_torch.sharding.api import (copy_to, gather_slice, reduce_from,
+                                      split_input)
 
 
 def _promote(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
@@ -280,17 +281,26 @@ def attention_apply(
         h //= plan.tp
     if plan is not None and plan.kv_heads:
         kv //= plan.tp
+    # the split projections read a whole activation: its gradient is the
+    # ranks' sum (K/V projections kept whole are marked in _local_kv)
+    xq = split_input(x, plan, plan is not None and plan.heads)
+    kv_in = split_input(kv_src, plan, plan is not None and plan.kv_heads)
     if "wqkv" in params:     # [q | k | v], each part this rank's slice
         if cross:
             raise ValueError("fused QKV is self-attention only")
+        if plan is not None and plan.pool_replicated \
+                and _requires_grad(params["wqkv"]):
+            raise NotImplementedError(
+                "a fused QKV over whole KV heads under a split of the query "
+                "heads has no gradient here: train on separate projections")
         qd, kd = h * hd, kv * hd
-        qkv = linear_apply(params["wqkv"], x, backend=backend)
+        qkv = linear_apply(params["wqkv"], xq, backend=backend)
         q = qkv[..., :qd].reshape(B, S, h, hd)
         k = qkv[..., qd:qd + kd].reshape(B, S, kv, hd)
         v = qkv[..., qd + kd:].reshape(B, S, kv, hd)
     elif "wkv" in params:
-        q = linear_apply(params["wq"], x, backend=backend).reshape(B, S, h, hd)
-        kvh = linear_apply(params["wkv"], kv_src, backend=backend)
+        q = linear_apply(params["wq"], xq, backend=backend).reshape(B, S, h, hd)
+        kvh = linear_apply(params["wkv"], kv_in, backend=backend)
         k = kvh[..., :kv * hd].reshape(B, Skv, kv, hd)
         v = kvh[..., kv * hd:].reshape(B, Skv, kv, hd)
     else:
@@ -298,8 +308,8 @@ def attention_apply(
             y = linear_apply(params[name], src, backend=backend)
             return y.reshape(B, src.shape[1], heads, hd)
 
-        q, k, v = (proj("wq", x, h), proj("wk", kv_src, kv),
-                   proj("wv", kv_src, kv))
+        q, k, v = (proj("wq", xq, h), proj("wk", kv_in, kv),
+                   proj("wv", kv_in, kv))
 
     if pos is None:
         q_pos = torch.arange(S, device=x.device)
@@ -342,6 +352,12 @@ def attention_apply(
     return out, new_cache
 
 
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
+
+
 def _local_kv(k: torch.Tensor, q: torch.Tensor, cfg: ModelConfig,
               plan) -> torch.Tensor:
     """k/v (..., T, KV, hd) for q's heads: unchanged where q's heads group
@@ -350,9 +366,10 @@ def _local_kv(k: torch.Tensor, q: torch.Tensor, cfg: ModelConfig,
     so the attention is one KV head per query head."""
     if plan is None or not plan.heads or plan.kv_heads:
         return k
+    k = copy_to(k, plan.mesh.group)   # every rank reads its heads of it
     H_loc = q.shape[2]
     g = cfg.n_heads // cfg.n_kv_heads
-    idx = (plan.mesh.rank * H_loc
+    idx = (plan.mesh.model_rank * H_loc
            + torch.arange(H_loc, device=k.device)) // g
     return k.index_select(k.dim() - 2, idx)
 
@@ -607,6 +624,7 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     with others in one all-reduce; a ``w2`` bias would then be added on
     every rank, so it is refused)."""
     g = None
+    x = split_input(x, plan, plan is not None and plan.mlp)
     if "w1g" in params:  # fused up+gate projection ([up, gate] layout)
         hg = linear_apply(params["w1g"], x, backend=backend)
         ff = hg.shape[-1] // 2
@@ -734,11 +752,8 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     added after it, once."""
     mc: MoEConfig = cfg.moe
     B, S, d = x.shape
-    T = B * S
-    sg = min(mc.group_size, T)
-    while T % sg:
-        sg //= 2
-    G = T // sg
+    sg = moe_group_size(mc, B * S, plan)
+    G = B * S // sg
     xt = x.reshape(G, sg, d)
     probs, gates, idx = _route(linear_apply(params["router"], xt).float(),
                                mc)
@@ -747,12 +762,14 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     dispatch, combine = _dispatch(idx, gates, E, cap, x.dtype)
     ep = plan is not None and plan.experts
     El = E // plan.tp if ep else E
+    x_ex = split_input(xt, plan, ep)
     if ep:                       # this rank's slots
-        lo = plan.mesh.rank * El
+        lo = plan.mesh.model_rank * El
         dispatch = dispatch[:, :, lo:lo + El]
-        combine = combine[:, :, lo:lo + El]
-    dt = _promote(dispatch, xt)
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xt.to(dt))
+        combine = copy_to(combine, plan.mesh.group)[:, :, lo:lo + El]
+    dt = _promote(dispatch, x_ex)
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dt),
+                             x_ex.to(dt))
     sub = dataclasses.replace(cfg, d_ff=mc.d_expert or cfg.d_ff)
     expert_out = ffn_apply(params["experts"],
                            expert_in.reshape(El, G * cap, d), sub,
@@ -775,14 +792,39 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if partial is None:
         out = whole
     else:
-        out = all_reduce_sum(partial, plan.mesh)
+        out = reduce_from(partial, plan.mesh.group)
         out = out if whole is None else out + whole
     if not lb_loss:
         return out.reshape(B, S, d), {}
-    frac = torch.mean((idx[..., 0, None] == torch.arange(
-        E, device=x.device)).float(), dim=(0, 1))
-    mean_prob = torch.mean(probs, dim=(0, 1))
+    top1 = (idx[..., 0, None] == torch.arange(E, device=x.device)).float()
+    data = None if plan is None else plan.mesh.data_group
+    if data is None:
+        frac = torch.mean(top1, dim=(0, 1))
+        mean_prob = torch.mean(probs, dim=(0, 1))
+    else:
+        # the means over the whole batch: every data rank's sums
+        n = float(G * sg * plan.mesh.data)
+        frac = reduce_from(torch.sum(top1, dim=(0, 1)), data) / n
+        mean_prob = reduce_from(torch.sum(probs, dim=(0, 1)), data) / n
     return out.reshape(B, S, d), {"lb_loss": E * torch.sum(frac * mean_prob)}
+
+
+def moe_group_size(mc: MoEConfig, T: int, plan=None) -> int:
+    """The routing group's size for ``T`` tokens on this rank: the
+    reference's ``min(group_size, tokens)``, halved until it tiles the
+    tokens, over the WHOLE batch's tokens (``T`` x the ``"data"`` axis)
+    so that a data split routes as one process does.  A split whose rows
+    would cut a group raises."""
+    data = 1 if plan is None else plan.mesh.data
+    total = T * data
+    sg = min(mc.group_size, total)
+    while total % sg:
+        sg //= 2
+    if T % sg:
+        raise ValueError(
+            f"a 'data' split of {data} cuts the MoE routing groups: "
+            f"{T} tokens a rank, groups of {sg} over the batch's {total}")
+    return sg
 
 
 # ---------------------------------------------------------------------------
@@ -811,11 +853,11 @@ def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     tok = tokens.long()
     Vl = table.shape[0]
     if plan is not None and plan.vocab:
-        local = tok - plan.mesh.rank * Vl
+        local = tok - plan.mesh.model_rank * Vl
         mine = (local >= 0) & (local < Vl)
         rows = table[torch.clamp(local, 0, Vl - 1)]
         rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-        rows = all_reduce_sum(rows, plan.mesh)
+        rows = reduce_from(rows, plan.mesh.group)
     else:
         rows = table[tok]
     # gather, then cast: the same values as the reference's cast-then-gather
@@ -828,13 +870,14 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """fp32 logits over the padded vocab.  Vocab-parallel weights give
     this rank's vocab slice of the logits, gathered from every rank
     (exact) before the padding mask."""
+    x = split_input(x, plan, plan is not None and plan.vocab)
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["table"].to(x.dtype).t())
     else:
         logits = torch.matmul(x, params["unembed"].to(x.dtype))
     logits = logits.float()
     if plan is not None and plan.vocab:
-        logits = all_gather_cat(logits, plan.mesh, dim=-1)
+        logits = gather_slice(logits, plan.mesh.group, dim=-1)
     logits = _softcap(logits, cfg.final_softcap)
     if cfg.vocab_padded > cfg.vocab:  # mask padding slots (softmax-neutral)
         valid = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
@@ -843,13 +886,23 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  data_group=None) -> torch.Tensor:
     """Mean next-token negative log-likelihood of ``labels`` under
     ``logits`` (..., V); with ``mask``, the masked sum over the mask's sum
-    (at least 1)."""
+    (at least 1).  Under a ``data_group`` the rows are this rank's share
+    of the batch: the sum and the count are the group's (fp32), so every
+    rank returns the whole batch's loss."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    if data_group is not None:
+        num = torch.sum(nll if mask is None else nll * mask)
+        den = (torch.tensor(float(nll.numel()), device=nll.device)
+               if mask is None else torch.sum(mask).float())
+        num, den = reduce_from(torch.stack([num.float(), den]),
+                               data_group).unbind()
+        return num / (den if mask is None else torch.clamp(den, min=1))
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
     return torch.mean(nll)
@@ -862,4 +915,5 @@ __all__ = [
     "causal_mask",
     "ffn_init", "ffn_apply", "moe_init", "moe_apply", "stack_trees",
     "embedding_init", "embed", "unembed", "cross_entropy", "GLOBAL_WINDOW",
+    "moe_group_size",
 ]

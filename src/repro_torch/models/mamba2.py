@@ -36,6 +36,13 @@ runs on the rank's ``x`` channels plus ``B`` and ``C``, the SSM on its
 heads, and ``out_proj`` is row-parallel (one all-reduce).  The gated
 RMSNorm normalises over the WHOLE ``d_inner``, so the ranks' fp32 sums
 of squares are summed by one more all-reduce before the ``rsqrt``.
+
+For training, each rank's use of a whole value is marked
+(``sharding.api.copy_to``) where its parts part ways: ``z``, ``x`` and
+``dt`` before the rank slices them, ``B`` and ``C`` after the conv, so
+that ``in_proj`` and the conv's ``B``/``C`` channels, whole on every
+rank, get the whole gradient; the norm's statistic is summed in the
+backward pass as well (``reduce_both``).
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ import torch.nn.functional as F
 from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _promote
-from repro_torch.sharding.api import all_reduce_sum
+from repro_torch.sharding.api import copy_to, reduce_both
 
 
 def _dims(cfg: ModelConfig):
@@ -207,7 +214,7 @@ def _local(cfg: ModelConfig, plan) -> tuple[int, int, int]:
     d_inner = _dims(cfg)[0]
     if plan is None or not plan.ssm_heads:
         return 1, 0, d_inner
-    return plan.tp, plan.mesh.rank, d_inner // plan.tp
+    return plan.tp, plan.mesh.model_rank, d_inner // plan.tp
 
 
 def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -232,6 +239,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     zxbcdt = linear_apply(params["in_proj"], x, backend=backend)
     z, xc, B, C, dt = _split_proj(cfg, zxbcdt)
     if tp > 1:       # this rank's heads of the whole projection's parts
+        z, xc, dt = (copy_to(t, plan.mesh.group) for t in (z, xc, dt))
         z, xc = (t[..., rank * d_inner:(rank + 1) * d_inner] for t in (z, xc))
         dt = dt[..., rank * nheads:(rank + 1) * nheads]
     xBC = torch.cat([xc, B, C], dim=-1)                        # (b,S,conv)
@@ -259,6 +267,8 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         new_conv = window[:, 1:, :]
 
     xc2, B2, C2 = torch.split(xBC, [d_inner, gn, gn], dim=-1)
+    if tp > 1:       # the whole B and C, read by this rank's heads
+        B2, C2 = (copy_to(t, plan.mesh.group) for t in (B2, C2))
     xh = xc2.reshape(bsz, -1, nheads, P)
     Bh = B2.reshape(bsz, -1, s.n_groups, s.d_state)
     Ch = C2.reshape(bsz, -1, s.n_groups, s.d_state)
@@ -287,8 +297,8 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y * F.silu(z)
     yf = y.float()
     if tp > 1:       # the mean over the whole d_inner: the ranks' sums
-        ss = all_reduce_sum(torch.sum(torch.square(yf), dim=-1,
-                                      keepdim=True), plan.mesh)
+        ss = reduce_both(torch.sum(torch.square(yf), dim=-1, keepdim=True),
+                         plan.mesh.group)
         var = ss / d_full
     else:
         var = torch.mean(torch.square(yf), dim=-1, keepdim=True)

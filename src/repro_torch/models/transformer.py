@@ -7,9 +7,10 @@ keys, every decoder leaf stacked on a leading layer axis
 reference scans that axis, the port loops over it.
 
 Public API:
-  init_params(cfg, seed, device)                  -> params
+  init_params(cfg, seed, device, plan=None)       -> params (a rank's
+                                                     shards under a plan)
   forward(params, batch, cfg, train=True)         -> (logits, aux)
-  loss_fn(params, batch, cfg)                     -> (loss, aux)
+  loss_fn(params, batch, cfg, plan=None)          -> (loss, aux)
   init_decode_cache(cfg, batch, max_len, device)  -> cache (the ring and
                                                      the Mamba states)
   decode_step(params, tokens, cache, cfg, enc_out=None) -> (logits, cache)
@@ -49,6 +50,7 @@ or each hybrid group, as ``cfg.remat`` asks, where the reference
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -175,23 +177,34 @@ def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
     return n_groups, cfg.n_layers - n_groups * cfg.shared_attn_every
 
 
+def _keep_all(prefix: str, tree: dict) -> dict:
+    return tree
+
+
 def decoder_stack_init(gen: torch.Generator, cfg: ModelConfig,
-                       cross: bool = False) -> dict:
-    if cfg.layer_kind == "attn":
-        return {"layers": L.stack_trees([attn_block_init(gen, cfg, cross)
-                                         for _ in range(cfg.n_layers)])}
-    if cfg.layer_kind == "mamba":
-        return {"layers": L.stack_trees([_mamba_layer_init(gen, cfg)
+                       cross: bool = False, keep=_keep_all,
+                       prefix: str = "decoder") -> dict:
+    """The stack's parameters, drawn layer by layer; ``keep(path,
+    layer_tree)`` cuts each layer (or the shared block) to what this rank
+    keeps as soon as it is drawn (``init_params(plan=)``)."""
+    if cfg.layer_kind in ("attn", "mamba"):
+        one = (lambda: attn_block_init(gen, cfg, cross)) \
+            if cfg.layer_kind == "attn" else \
+            (lambda: _mamba_layer_init(gen, cfg))
+        return {"layers": L.stack_trees([keep(f"{prefix}/layers", one())
                                          for _ in range(cfg.n_layers)])}
     # hybrid (Zamba2): (n_groups, g, ...) Mamba layers, one shared block
     g = cfg.shared_attn_every
     n_groups, tail = hybrid_groups(cfg)
     p = {"groups": L.stack_trees([
-        L.stack_trees([_mamba_layer_init(gen, cfg) for _ in range(g)])
+        L.stack_trees([keep(f"{prefix}/groups", _mamba_layer_init(gen, cfg))
+                       for _ in range(g)])
         for _ in range(n_groups)]),
-        "shared_attn": attn_block_init(gen, cfg)}
+        "shared_attn": keep(f"{prefix}/shared_attn",
+                            attn_block_init(gen, cfg))}
     if tail:
-        p["tail"] = L.stack_trees([_mamba_layer_init(gen, cfg)
+        p["tail"] = L.stack_trees([keep(f"{prefix}/tail",
+                                        _mamba_layer_init(gen, cfg))
                                    for _ in range(tail)])
     return p
 
@@ -330,21 +343,51 @@ def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
                                layer_kind="attn")
 
 
+@functools.lru_cache(maxsize=16)
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's leaves as fake tensors (shapes and dtypes;
+    nothing is drawn or held).  Cached: read it, never write to it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return init_params(cfg, seed=0, device="cpu")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> dict:
+                device: DeviceLike = None, plan=None) -> dict:
     """Random parameters from ``seed``, generated on ``device``.  They
-    match the reference's initializer in distribution, not in value."""
+    match the reference's initializer in distribution, not in value.
+
+    Under a ``plan`` (``sharding.params.TPPlan``) the tree is this rank's
+    shards: every leaf is drawn in the same order as without one, and each
+    layer (the embedding, each stacked layer, the final norms) is cut to
+    the rank's ``"model"`` part and then its ``"data"`` part as soon as
+    it is drawn (``sharding.params.keep_parts``), so the rank holds its
+    shards plus one layer's whole leaves at most; each shard is
+    ``torch.equal`` to the slice of the whole draw."""
     dev = resolve_device(device)
+    keep = _keep_all
+    if plan is not None:
+        from repro_torch.sharding.params import keep_parts, placements
+
+        table = placements(param_shapes(cfg), plan)
+
+        def keep(prefix, tree):
+            return keep_parts(tree, prefix, table, plan)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     p = {
-        "embedding": L.embedding_init(gen, cfg),
-        "decoder": decoder_stack_init(gen, cfg, cross=cfg.encdec),
-        "ln_f": L.norm_init(cfg.d_model, cfg.norm_type, device=dev),
+        "embedding": keep("embedding", L.embedding_init(gen, cfg)),
+        "decoder": decoder_stack_init(gen, cfg, cross=cfg.encdec, keep=keep),
+        "ln_f": keep("ln_f", L.norm_init(cfg.d_model, cfg.norm_type,
+                                         device=dev)),
     }
     if cfg.encdec:
-        p["encoder"] = decoder_stack_init(gen, _enc_cfg(cfg))
-        p["ln_enc"] = L.norm_init(cfg.d_model, cfg.norm_type, device=dev)
+        p["encoder"] = decoder_stack_init(gen, _enc_cfg(cfg), keep=keep,
+                                          prefix="encoder")
+        p["ln_enc"] = keep("ln_enc", L.norm_init(cfg.d_model, cfg.norm_type,
+                                                 device=dev))
     return p
 
 
@@ -390,14 +433,19 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, train: bool = True,
     return L.unembed(params["embedding"], x, cfg, plan=plan), aux
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, plan=None):
     """The training loss of a batch {"tokens", "labels"[, "loss_mask"],
     the frontends' inputs}: the masked next-token cross-entropy of
     ``forward(train=True)`` (activation checkpointing as ``cfg.remat``
     asks), plus 0.01 x the load-balance loss for an MoE model.  Returns
-    (loss, aux)."""
-    logits, aux = forward(params, batch, cfg, train=True)
-    loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    (loss, aux).  Under a ``plan`` the params are this rank's
+    ``"model"`` parts and the batch its rows of a ``"data"`` split: the
+    cross-entropy's sum and count and the load-balance loss's means are
+    the whole batch's, so every rank returns the whole batch's loss."""
+    logits, aux = forward(params, batch, cfg, train=True, plan=plan)
+    loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                           data_group=None if plan is None
+                           else plan.mesh.data_group)
     if cfg.moe is not None:
         loss = loss + 0.01 * aux["lb_loss"]
     return loss, aux
@@ -580,7 +628,7 @@ def paged_mixed_step(params: dict, tokens: torch.Tensor, start: torch.Tensor,
 
 
 __all__ = [
-    "init_params", "forward", "loss_fn", "init_decode_cache", "decode_step",
+    "init_params", "param_shapes", "forward", "loss_fn", "init_decode_cache", "decode_step",
     "prefill", "hybrid_groups",
     "prefill_with_cache", "init_paged_pool", "paged_mixed_step",
     "cow_copy_pages", "decoder_stack_init", "decoder_stack_apply",

@@ -11,6 +11,12 @@ dicts in, so the global norm sums its leaves in the reference's order.
 ``decay_mask(path, leaf) -> bool`` receives the leaf's path as a tuple of
 its dict keys, outermost first (``("decoder", "layers", "attn", "wq",
 "L")``): the keys of the reference's path, without JAX's key objects.
+
+Under a ``("data", "model")`` mesh the grads, moments and params are a
+rank's shards and every update is elementwise on them; only the global
+norm spans ranks: ``update(..., leaf_sums=f)`` takes ``f``, which maps
+the gradient shards (in the leaves' sorted order) to each whole leaf's
+sum of squares, every element counted once (``launch.steps``).
 """
 
 from __future__ import annotations
@@ -44,9 +50,14 @@ def leaves_with_paths(tree, prefix: tuple = ()) -> list:
     return [(prefix, tree)]
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, leaf_sums=None):
+    """``leaf_sums``: None on one process, or the mesh's map from the
+    gradient shards to each whole leaf's sum of squares (module
+    docstring)."""
     leaves = [g for _, g in leaves_with_paths(grads)]
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    sq = (leaf_sums(leaves) if leaf_sums is not None else
+          [torch.sum(torch.square(g.float())) for g in leaves])
+    gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
 
@@ -71,10 +82,10 @@ def adamw(
             nu=tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
-    def update(grads, state: AdamWState, params):
+    def update(grads, state: AdamWState, params, leaf_sums=None):
         gnorm = None
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, leaf_sums)
         step = state.step + 1
         lr_t = lr(step) if callable(lr) else lr
         # b ** step in fp32, as the reference's weak-typed b1 ** fp32 step

@@ -75,7 +75,7 @@ class DeviceKV:
                                       n_kv_heads=self.local_kv_heads)
 
     def _heads(self):
-        rank = 0 if self.mesh is None else self.mesh.rank
+        rank = 0 if self.mesh is None else self.mesh.model_rank
         return rank * self.local_kv_heads, self.local_kv_heads
 
     def export(self) -> dict:

@@ -101,9 +101,10 @@ restore copies device state into the engine's own tensors, so its step
 graphs read the restored state.  Under a mesh every rank snapshots (the
 pages' export is a collective) and rank 0 alone writes the files.
 
-A mesh whose ``"data"`` axis is > 1 is not ported (it raises
-``NotImplementedError``): that axis carries data parallelism and FSDP,
-queued in ROADMAP.md (section A, item 5).
+A mesh whose ``"data"`` axis is > 1 is refused (``ValueError``): the
+engine's data parallelism is the replica router
+(``serving.replicas``), one engine a replica; the ``"data"`` axis
+carries training's data parallelism and FSDP (``launch.steps``).
 
 :class:`ServeEngine` is the reference's legacy single-batch engine over
 the ring KV cache: one prefill of the whole prompt block
@@ -289,6 +290,11 @@ class ContinuousBatchingEngine:
         self.tp = 1 if mesh is None else mesh.model
         self.plan = None
         if mesh is not None:
+            if mesh.data > 1:
+                raise ValueError(
+                    f"a 'data' axis of {mesh.data}: the engine serves on "
+                    f"the 'model' axis alone; serve data-parallel through "
+                    f"the replica router (serving.replicas)")
             if mesh.group is None:
                 raise ValueError(
                     "the mesh has no process group (a shape alone): join "

@@ -75,6 +75,21 @@ The decision is made once, at load, by :func:`tp_plan`: its
 :class:`TPPlan` is what ``shard_params`` slices by, what the layers read
 to know which linears end in an all-reduce and where attention runs, and
 what sizes the engine's pool (``kv_shard``) and the decode cache.
+
+**FSDP over ``"data"``** (training; the reference's ZeRO-3 placement of
+the fp32 masters and both AdamW moments).  After its tensor-parallel
+split, each leaf splits over the ``"data"`` axis on the dim the
+reference's rules (``repro.sharding.params._RULES``, kept here as
+:data:`_REF_RULES`) give ``"data"``, where the port's ``"model"`` split
+leaves that dim free and ``data`` divides it; otherwise on the first dim
+of the leaf's own (``data`` divides it, not the ``"model"`` one), or it
+stays whole, as the reference's guard leaves it.  A leaf the reference
+gives no ``"data"`` dim (norms, the router, the Mamba conv and heads'
+vectors) stays whole.  The stacked layer axes are never split, so a
+layer's leaves are sliced as they are drawn (:func:`keep_parts`,
+``transformer.init_params(plan=)``).  Where the port's dim differs from
+the reference's (:func:`fsdp_axis`), the difference is designed: the
+port's ``"model"`` split takes other dims than the reference's.
 """
 
 from __future__ import annotations
@@ -314,34 +329,218 @@ def split_parts(path: str, shape, plan: TPPlan
     return ax, tuple(zip(widths, flags))
 
 
+def _tp_slice(node: torch.Tensor, tp_parts, tp: int, rank: int):
+    if tp_parts is None:
+        return node
+    ax, parts = tp_parts
+    pieces, at = [], 0
+    for w, split in parts:
+        pieces.append(node.narrow(ax, at + rank * (w // tp), w // tp)
+                      if split else node.narrow(ax, at, w))
+        at += w
+    return torch.cat(pieces, dim=ax) if len(pieces) > 1 else pieces[0]
+
+
 def shard_params(tree, plan: TPPlan) -> dict:
-    """This rank's slices of a full parameter tree under ``plan``,
-    contiguous, on the plan's mesh's device.  A fused leaf's rank slice
-    is each part's slice, concatenated in the parts' order (``[q_r | k_r
-    | v_r]``; a part whose group stays whole is kept whole).  Each leaf is
-    sliced where it lies and only the slice is moved, so a full tree on
-    the CPU never reaches the card whole.  Quantized and fused trees are
-    prepared whole first (``models.decode_path.prepare_decode_params``),
-    so a block's scale is the one the tp = 1 tree holds."""
-    tp, rank, dev = plan.tp, plan.mesh.rank, plan.mesh.device
+    """This rank's ``"model"`` slices of a full parameter tree under
+    ``plan`` (whole over ``"data"``: the serving steps' params), contiguous,
+    on the plan's mesh's device: :func:`shard_train_params` with no FSDP
+    split.  A fused leaf's rank slice is each part's slice, concatenated
+    in the parts' order (``[q_r | k_r | v_r]``; a part whose group stays
+    whole is kept whole).  Quantized and fused trees are prepared whole
+    first (``models.decode_path.prepare_decode_params``), so a block's
+    scale is the one the tp = 1 tree holds."""
+    return shard_train_params(tree, plan, placements(tree, plan, fsdp=False))
 
-    def go(node, prefix):
+
+# ---------------------------------------------------------------------------
+# FSDP over "data"
+# ---------------------------------------------------------------------------
+
+# the reference's rules (repro/sharding/params.py:47-72, its "psum"
+# scheme): (path substrings, all of which must appear; each trailing
+# dim's mesh axis)
+_REF_RULES: list[tuple[tuple[str, ...], tuple]] = [
+    (("experts", "/L"), ("model", None, None, "data")),
+    (("experts", "/R"), ("model", None, "data", None)),
+    (("experts", "w1", "w"), ("model", "data", None)),
+    (("experts", "wg", "w"), ("model", "data", None)),
+    (("experts", "w2", "w"), ("model", None, "data")),
+    (("router",), (None, None)),
+    (("embedding", "table"), ("model", "data")),
+    (("embedding", "unembed"), ("data", "model")),
+    (("/L",), ("model", None, "data")),
+    (("/R",), (None, "data", "model")),
+    (("wq", "w"), ("data", "model")),
+    (("wk", "w"), ("data", "model")),
+    (("wv", "w"), ("data", "model")),
+    (("wo", "w"), ("model", "data")),
+    (("w1", "w"), ("data", "model")),
+    (("wg", "w"), ("data", "model")),
+    (("w2", "w"), ("model", "data")),
+    (("in_proj", "w"), ("data", "model")),
+    (("out_proj", "w"), ("model", "data")),
+    (("conv_w",), (None, "model")),
+    (("conv_b",), ("model",)),
+    (("A_log",), ("model",)),
+    (("dt_bias",), ("model",)),
+    (("norm_scale",), ("model",)),
+    (("D",), ("model",)),
+]
+
+
+def reference_spec(path: str, ndim: int) -> tuple:
+    """The reference's ``spec_for(path, shape)`` before its divisibility
+    guard: one mesh axis name (or None) a dim, leading dims padded with
+    None; all None where no rule matches or the rule is longer than the
+    leaf."""
+    for needles, axes in _REF_RULES:
+        if all(n in path for n in needles):
+            if len(axes) > ndim:
+                return (None,) * ndim
+            return (None,) * (ndim - len(axes)) + tuple(axes)
+    return (None,) * ndim
+
+
+def stacked_dims(path: str) -> int:
+    """How many leading axes of ``path``'s leaf stack layers: 1 for a
+    stack's ``layers`` and a hybrid's ``tail``, 2 for its ``groups``, 0
+    elsewhere (the embedding, the final norms, the shared block)."""
+    parts = path.split("/")
+    if len(parts) > 1 and parts[0] in ("decoder", "encoder"):
+        return {"layers": 1, "tail": 1, "groups": 2}.get(parts[1], 0)
+    return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlacement:
+    """Where one leaf of a train state lives on a ``("data", "model")``
+    mesh: its whole shape, its ``"model"`` split (``split_parts``:
+    ``(axis, ((width, splits), ...))`` or None), the dim it splits over
+    ``"data"`` (negative: counted from the end, never a stacked layer
+    axis; None: whole on every data rank), and this rank's shard shape."""
+
+    shape: tuple
+    tp: Optional[tuple]
+    fsdp: Optional[int]
+    shard: tuple
+
+
+def _tp_local(shape: tuple, tp_parts, tp: int) -> tuple:
+    if tp_parts is None:
+        return tuple(shape)
+    ax, parts = tp_parts
+    out = list(shape)
+    out[ax] = sum(w // tp if split else w for w, split in parts)
+    return tuple(out)
+
+
+def fsdp_axis(path: str, shape, plan: TPPlan) -> Optional[int]:
+    """The dim (negative) ``path``'s leaf of whole ``shape`` splits over
+    the ``"data"`` axis under ``plan`` (module docstring), or None."""
+    data = plan.mesh.data
+    if data == 1:
+        return None
+    nd = len(shape)
+    spec = reference_spec(path, nd)
+    if "data" not in spec:
+        return None
+    sp = split_parts(path, shape, plan)
+    tax = None if sp is None else sp[0] % nd
+    local = _tp_local(shape, sp, plan.tp)
+    lead = stacked_dims(path)
+    want = spec.index("data")
+    if want >= lead and want != tax and local[want] % data == 0:
+        return want - nd
+    for i in range(lead, nd):
+        if i != tax and local[i] % data == 0:
+            return i - nd
+    return None
+
+
+def placement(path: str, shape, plan: TPPlan,
+              fsdp: bool = True) -> LeafPlacement:
+    shape = tuple(shape)
+    sp = split_parts(path, shape, plan)
+    fax = fsdp_axis(path, shape, plan) if fsdp else None
+    shard = list(_tp_local(shape, sp, plan.tp))
+    if fax is not None:
+        shard[fax] //= plan.mesh.data
+    return LeafPlacement(shape, sp, fax, tuple(shard))
+
+
+def placements(tree, plan: TPPlan, fsdp: bool = True) -> dict:
+    """{path: :class:`LeafPlacement`} of every leaf of a whole tree (meta
+    or fake tensors will do: only shapes are read); ``fsdp=False``: the
+    ``"model"`` split alone, every leaf whole over ``"data"``."""
+    return {path: placement(path, leaf.shape, plan, fsdp)
+            for path, leaf in _leaves(tree)}
+
+
+def shard_leaf(node: torch.Tensor, pl: LeafPlacement,
+               plan: TPPlan) -> torch.Tensor:
+    """This rank's shard of a leaf (the whole leaf, or one layer of it:
+    the split axes are counted from the end): its ``"model"`` part, then
+    its ``"data"`` part, a contiguous copy of its own."""
+    node = _tp_slice(node, pl.tp, plan.tp, plan.mesh.model_rank)
+    if pl.fsdp is not None:
+        n = node.shape[pl.fsdp] // plan.mesh.data
+        node = node.narrow(pl.fsdp, plan.mesh.data_rank * n, n)
+    return node.contiguous().clone() if node.is_contiguous() \
+        else node.contiguous()
+
+
+def keep_parts(tree, prefix: str, table: dict, plan: TPPlan) -> dict:
+    """Each leaf of ``tree`` (a subtree at ``prefix``: a layer of a
+    stack, the embedding) cut to this rank's shard by its placement in
+    ``table`` (:func:`placements` of the whole tree)."""
+    if isinstance(tree, dict):
+        return {k: keep_parts(v, f"{prefix}/{k}" if prefix else str(k),
+                              table, plan) for k, v in tree.items()}
+    return shard_leaf(tree, table[prefix], plan)
+
+
+def shard_train_params(tree, plan: TPPlan, table: dict) -> dict:
+    """This rank's shards of a whole tree (``"model"`` then ``"data"``),
+    on the plan's mesh's device: each leaf is sliced where it lies and
+    only the shard is moved."""
+    out = keep_parts(tree, "", table, plan)
+
+    def go(node):
         if isinstance(node, dict):
-            return {k: go(v, f"{prefix}/{k}" if prefix else str(k))
-                    for k, v in node.items()}
-        sp = split_parts(prefix, node.shape, plan)
-        if sp is not None:
-            ax, parts = sp
-            pieces, at = [], 0
-            for w, split in parts:
-                pieces.append(node.narrow(ax, at + rank * (w // tp), w // tp)
-                              if split else node.narrow(ax, at, w))
-                at += w
-            node = torch.cat(pieces, dim=ax) if len(pieces) > 1 \
-                else pieces[0]
-        return node.contiguous().to(dev)
+            return {k: go(v) for k, v in node.items()}
+        return node.to(plan.mesh.device)
 
-    return go(tree, "")
+    return go(out)
 
 
-__all__ = ["TPPlan", "shard_params", "tp_plan", "split_parts", "GROUPS"]
+def unshard_leaf(parts: list, pl: LeafPlacement, plan: TPPlan
+                 ) -> torch.Tensor:
+    """A whole leaf put back together from every world rank's shard
+    (``parts[r]`` is world rank ``r``'s): each model rank's ``"data"``
+    shards joined on the FSDP dim, then the model ranks' parts joined
+    part by part on the ``"model"`` dim."""
+    tp, data = plan.tp, plan.mesh.data
+    per_model = []
+    for m in range(tp):
+        mine = [parts[d * tp + m] for d in range(data)]
+        per_model.append(torch.cat(mine, dim=pl.fsdp)
+                         if pl.fsdp is not None else mine[0])
+    if pl.tp is None:
+        return per_model[0]
+    ax, widths = pl.tp
+    pieces, at = [], 0
+    for w, split in widths:
+        n = w // tp if split else w
+        if split:
+            pieces.extend(t.narrow(ax, at, n) for t in per_model)
+        else:
+            pieces.append(per_model[0].narrow(ax, at, n))
+        at += n
+    return torch.cat(pieces, dim=ax)
+
+
+__all__ = ["TPPlan", "shard_params", "tp_plan", "split_parts", "GROUPS",
+           "LeafPlacement", "placement", "placements", "fsdp_axis",
+           "reference_spec", "stacked_dims", "shard_leaf", "keep_parts",
+           "shard_train_params", "unshard_leaf"]

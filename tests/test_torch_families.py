@@ -265,13 +265,11 @@ def test_gemma2_post_norms_stay_whole_under_tensor_parallelism(rank):
     """At tp = 2 the plan splits gemma2's heads and FFN; the sandwich
     post-norms have no rule and stay whole on every rank, like ``ln1`` and
     ``ln2`` (the reference replicates every norm)."""
-    import types
-
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.sharding.params import shard_params, tp_plan
 
     _, tc, _, tp = _model("gemma2-27b")
-    mesh = types.SimpleNamespace(model=2, rank=rank,
-                                 device=torch.device("cpu"))
+    mesh = Mesh(model=2, rank=rank, device="cpu")
     plan = tp_plan(tp, tc, mesh)
     assert plan.heads and plan.mlp
     mine = shard_params(tp, plan)["decoder"]["layers"]

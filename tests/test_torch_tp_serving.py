@@ -417,11 +417,15 @@ def test_ranks_load_no_jax_and_no_reference(worlds, tp):
 def test_tp_engine_refuses_what_is_not_ported():
     from repro_torch.launch.mesh import Mesh, make_host_mesh
 
-    with pytest.raises(NotImplementedError, match="data"):
-        Mesh(model=2, data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="data"):
-        make_host_mesh(model=2, rank=0, backend="gloo", data=2,
-                       store=None, device="cpu")
+    # the "data" axis is training's: the engine refuses it (its
+    # data-parallel serving is the replica router), a rank outside the
+    # data x model world is refused
+    mesh = Mesh(model=2, rank=3, data=2, device="cpu")
+    assert (mesh.data_rank, mesh.model_rank) == (1, 1)
+    with pytest.raises(ValueError, match="data"):
+        ContinuousBatchingEngine(_configs("tp_test", True)[1], {}, mesh=mesh)
+    with pytest.raises(ValueError, match="rank"):
+        Mesh(model=2, rank=4, data=2, device="cpu")
     with pytest.raises(ValueError, match="backend"):
         make_host_mesh(model=2, rank=0, backend="mpi", store=None,
                        device="cpu")

@@ -606,8 +606,9 @@ def test_trainer_loss_decreases_and_resumes(tmp_path):
     trainer2.run(make_batches(dcfg, prefetch=0))
     assert trainer2.history[0]["step"] == 30
     assert trainer2.history[0]["loss"] < first
-    with pytest.raises(NotImplementedError):
-        Mesh(model=1, data=2, device="cpu")
+    # a mesh of more than one rank trains only once it joined its world
+    with pytest.raises(ValueError, match="process group"):
+        Trainer(tc, tcfg2, mesh=Mesh(model=1, data=2, device="cpu"))
 
 
 def test_trainer_wsd_schedule_runs():
@@ -802,7 +803,7 @@ def test_training_entry_points_run_on_cuda_unless_cpu(monkeypatch):
         init(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(tc, TrainerConfig(steps=1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         Trainer(tc, TrainerConfig(steps=1),
                 mesh=Mesh(model=2, rank=0, device="cpu"))
     state = init(0, device="cpu")
