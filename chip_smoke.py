@@ -9,6 +9,8 @@
 
     PYTHONPATH=src python3 chip_smoke.py --families  # 2n and 3h alone
 
+    PYTHONPATH=src python3 chip_smoke.py --dryrun    # phase 6 alone
+
 Phases, each printed as one JSON object per line:
 
   1. build    compile every CUDA kernel from ``src/repro_torch/kernels/csrc``,
@@ -226,8 +228,10 @@ Phases, each printed as one JSON object per line:
               put back together at tests/test_torch_train.py's limits;
               granite-moe-1b-a400m at full width cut to 2 layers the
               same way (routes first); gpt2-medium bf16 as a reading
-              (3 steps: loss, wall and device ms, collectives a step);
-              each rank's peak memory beside its prediction; granite's
+              (3 steps: loss, wall and device ms, collectives a step,
+              each by kind, axis and operand bytes); each rank's peak
+              memory beside the dry run's traced peak of one step of its
+              job (a reading); granite's
               Trainer checkpoint saved under the mesh (whole leaves,
               rank 0 writes): every rank's shards restored from it
               torch.equal to the state it saved, and resumed by one
@@ -293,9 +297,29 @@ Phases, each printed as one JSON object per line:
               logits, the Mamba states put back together; zamba2's
               whole in_proj on B2); collectives a step and each rank's
               peak memory (``--tp-families`` runs the build and 5e alone)
+  6. dryrun   the dry run (launch/dryrun.py: one rank's step traced on
+              meta tensors under launch/hlo_analysis.count_step) held to
+              the steps 3i and 3j ran on the card: the collectives of
+              3j's gpt2-medium bf16 step at a shape-only data 2 x model 2
+              gloo mesh equal to what every rank of 3j's world counted in
+              one step (kind, axis, operand bytes and count); the traced
+              peak of 3i's single-process step (8 x 1024, remat "full"
+              and "none") within DRYRUN_PEAK_TOL of the step_peak_gb 3i
+              read; that step's FLOPs counted on the card equal to those
+              counted on meta; its roofline terms at the H100's
+              data-sheet rates beside 3i's device ms (a reading)
+              (``--dryrun`` runs the build, 3i's step readings, 3j's bf16
+              world and this phase alone)
 
-It exits non-zero on the first failed check, and when a rank fails.  Each
-phase ends with its seconds (``phase_seconds``).  The
+The gloo worlds of 5c, 3j and 5e (spawned ranks, ~2 min each) run in
+background threads while this process goes on: 5c's from phase 3 on, 3j's
+and then 5e's from 3e on; each phase reads its world's ranks where it
+stands above, and all three are joined before 3i.  Nothing runs beside
+phases 2 and 5a, whose kernel times fill the summary.
+
+It exits non-zero on the first failed check, and when a rank fails (a
+world still running is then stopped).  Each phase ends with its seconds
+and the most this process reserved on the card (``phase_seconds``).  The
 last lines are the per-kernel summary, the card's name and power limit
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  It needs one
 CUDA device and never imports JAX or the reference package.
@@ -310,6 +334,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -321,9 +346,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # 3i); on Hopper it is PyTorch's default size, so no other phase changes
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+# H100 SXM device memory and bf16 tensor cores (dense): the dry run's
+# data-sheet rates, one source for both
+from repro_torch.launch.hlo_analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_FLOPS_PER_S)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 without tensor cores
-BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:17-19
 # card vs CPU, fp32 logits of one full-width mixed step: both sides sum in
@@ -423,6 +450,9 @@ TRAIN_CFG = dict(steps=30, peak_lr=3e-3, warmup=5, schedule="wsd",
                  ckpt_every=20, log_every=0)
 TRAIN_RESUME_AT = 20
 TRAIN_DIR = ROOT / "build" / "train_ckpt"
+# phase 6: a traced peak against the card's max_memory_allocated: the
+# allocator rounds every block up to 512 B and holds cuBLAS's workspace
+DRYRUN_PEAK_TOL = dict(rel=0.10, abs_bytes=512 * 2 ** 20)
 
 KERNELS = ("monarch_fused", "bdmm", "paged_attention_span",
            "monarch_fused_q", "bdmm_q", "paged_attention_span_q",
@@ -491,6 +521,9 @@ PROFILED_SHARE = 0.9
 WITNESS_READINGS = 3
 # ranks of the tensor-parallel phase: processes that share the one card
 TP = 2
+# the longest a timed loop of ``time_ms`` runs: a call slower than this is
+# timed alone, one call a loop
+TIME_LOOP_MS = 10.0
 # phase 5e's MoE engine traces: (requests, shortest and longest prompt,
 # seed), greedy, TPF_NEW new tokens each; its serving steps' batch, prompt
 # (token by token), new tokens and encoder frames
@@ -575,6 +608,29 @@ def _card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+# set when the script ends, so a world still running in the background is
+# stopped with it (``launch.mesh.run_ranks(stop=)``)
+WORLD_STOP = threading.Event()
+
+
+def _start_world(pool, fn, ranks: int, jobs: dict, data: int = 1):
+    """``run_ranks(fn, ranks)`` over gloo on the card in ``pool``'s thread,
+    while this process goes on with other phases: a future of (the ranks'
+    results, the world's seconds)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    def world():
+        if WORLD_STOP.is_set():
+            raise RuntimeError("the script ended before the world started")
+        t0 = time.perf_counter()
+        out = run_ranks(fn, ranks, backend="gloo", device="cuda:0",
+                        data=data, args=(jobs,), timeout_s=900,
+                        stop=WORLD_STOP)
+        return out, time.perf_counter() - t0
+
+    return pool.submit(world)
 
 
 def _ptxas_report(log: str) -> list:
@@ -3204,7 +3260,12 @@ def _train_readings(cfg, batch, dev, card: str) -> dict:
     (``max_memory_allocated`` over the step, and that less what was
     allocated before the train state was made: the step's own peak, its
     state included, without what earlier phases keep alive), the step's
-    device ms and its top 5 device ops from torch.profiler."""
+    device ms and its top 5 device ops from torch.profiler.  Earlier
+    phases' garbage is collected first: a reference cycle freed during
+    the step (a finished Trainer) would otherwise leave the card's
+    memory ``before`` the state and take it off the step's peak."""
+    import gc
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -3218,6 +3279,7 @@ def _train_readings(cfg, batch, dev, card: str) -> dict:
     for remat in ("full", "none"):
         c = dataclasses.replace(cfg, remat=remat)
         init, step = make_train_step(c, adamw(lr=1e-4))
+        gc.collect()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         state = init(0, device=dev)
@@ -3243,6 +3305,7 @@ def _train_readings(cfg, batch, dev, card: str) -> dict:
                       "step_device_ms": sum(t for t, _ in ops) / 1e3,
                       "tokens_per_s": tokens / wall,
                       "max_memory_allocated_gb": peak / 1e9,
+                      "allocated_before_gb": before / 1e9,
                       "step_peak_gb": (peak - before) / 1e9,
                       "top5_device_ops_ms": [[k[:160], t / 1e3]
                                              for t, k in ops[:5]]}
@@ -3378,14 +3441,15 @@ def _train_refusal(dev, card: str) -> dict:
     return line
 
 
-def _phase_train(dev) -> None:
+def _phase_train(dev) -> dict:
     """Phase 3i: training on the card.  (a) card vs CPU at 2 layers for
     gpt2-medium (Monarch), granite-moe-1b-a400m (MoE) and mamba2-2.7b
     (SSD): the card's steps first, the CPU's on a worker thread while the
     card trains (b) gpt2-medium at full width and depth with its resumed
     run; then the step's readings, with the CPU idle again, and (c) the
     kernels' refusal of autograd.  The einsum backend: no kernel launches
-    in the phase."""
+    in the phase.  Returns the step's readings and the batch they took
+    (phase 6 holds the dry run to them)."""
     import concurrent.futures
 
     import torch
@@ -3407,12 +3471,13 @@ def _phase_train(dev) -> None:
         batches = _train_gpt2(dev, card)
         for arch, c, on_card, on_cpu in pending:
             _train_parity(arch, c, on_card, on_cpu.result(), card)
-    _train_readings(_train_gpt2_cfg(), batches[0], dev, card)
+    readings = _train_readings(_train_gpt2_cfg(), batches[0], dev, card)
     torch.cuda.empty_cache()
     _train_refusal(dev, card)
     counts = {k: v for k, v in launches().items() if v}
     emit({"phase": "train_launches", "launches": counts, "card": card})
     require(not counts, f"phase 3i launched kernels: {counts}")
+    return {"readings": readings, "batch": batches[0]}
 
 
 # -- phase 3j: training under the ("data", "model") mesh --------------------
@@ -3539,8 +3604,8 @@ def _tm_held(mesh, dev, cfg, batches) -> dict:
 
 def _tm_reading(mesh, dev, cfg, batches) -> dict:
     """gpt2-medium in bf16 under the mesh, a reading: each step's loss,
-    wall ms (synchronized) and collectives; the last step's device ms
-    from torch.profiler."""
+    wall ms (synchronized) and collectives (by kind, and by kind, axis
+    and operand bytes); the last step's device ms from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3551,10 +3616,12 @@ def _tm_reading(mesh, dev, cfg, batches) -> dict:
 
     init, step = S.make_train_step(cfg, adamw(**TM_OPT), mesh=mesh)
     state = init(0, device=dev)
-    out = {"loss": [], "step_wall_ms": [], "collectives": []}
+    out = {"loss": [], "step_wall_ms": [], "collectives": [],
+           "collective_bytes": []}
     for i, b in enumerate(batches):
         last = i == len(batches) - 1
         api.reset_collectives()
+        api.reset_collective_bytes()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with (profile(activities=[ProfilerActivity.CUDA]) if last
@@ -3564,6 +3631,7 @@ def _tm_reading(mesh, dev, cfg, batches) -> dict:
             torch.cuda.synchronize()
         out["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
         out["collectives"].append(api.collectives())
+        out["collective_bytes"].append(api.collective_bytes())
     out["last_step_device_ms"] = sum(
         (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total)
         for e in prof.key_averages()
@@ -3641,35 +3709,24 @@ def _tm_rank(mesh, jobs: dict) -> dict:
     return out
 
 
-def _tm_prediction(cfg, mesh) -> dict:
-    """A rank's predicted peak, in bytes, from its placements: the fp32
-    shards of the masters, both moments and the gradient; the gathered
-    "model" part of the tree and its gradient; and the activations --
-    remat "full" keeps each layer's input (B_rank x S x d, the compute
-    dtype), the whole fp32 logits (B_rank x S x Vp) three times (the
-    gathered logits, the log-softmax's and their gradient) and one
-    layer's recompute."""
-    import math
+def _tm_dry(cfg, batch):
+    """The dry run of one step of ``cfg`` on rank 0 of a shape-only
+    (TM_DATA x TM_MODEL) gloo mesh, on ``batch``'s shapes: its
+    ``hlo_analysis.StepCount`` (the traced peak is phase 3j's prediction
+    of a rank's; its collectives phase 6's check)."""
+    from repro_torch.launch.dryrun import count_train_step
+    from repro_torch.launch.mesh import shape_mesh
+    from repro_torch.optim import adamw
 
-    from repro_torch.launch.steps import train_plan
+    return count_train_step(cfg, shape_mesh(TM_DATA, TM_MODEL,
+                                            backend="gloo"), batch,
+                            adamw(**TM_OPT))
 
-    _, table = train_plan(cfg, mesh)
-    shard = sum(math.prod(p.shard) for p in table.values()) * 4
-    local = sum(math.prod(p.shard) * (mesh.data if p.fsdp is not None
-                                      else 1) for p in table.values()) * 4
-    rows = TM_BATCH // mesh.data
-    act = 2 if cfg.dtype == "bfloat16" else 4
-    layer_in = rows * TM_SEQ * cfg.d_model * act * cfg.n_layers
-    logits = rows * TM_SEQ * cfg.vocab_padded * 4 * 3
-    # one layer recomputed: its projections' outputs and the attention
-    # scores of its heads (B_rank x H / model x S x S, fp32)
-    heads = cfg.n_heads // mesh.model
-    layer = (rows * heads * TM_SEQ * TM_SEQ * 4 * 2
-             + rows * TM_SEQ * (4 * cfg.d_model + 2 * cfg.d_ff) * act)
-    return {"shards_gb": 4 * shard / 1e9, "gathered_gb": 2 * local / 1e9,
-            "activations_gb": (layer_in + logits + layer) / 1e9,
-            "total_gb": (4 * shard + 2 * local + layer_in + logits + layer)
-            / 1e9}
+
+def _records(counts: dict) -> list:
+    """A ``sharding.api.collective_bytes()`` table as JSON rows [kind,
+    axis, operand bytes, count]."""
+    return sorted([*k, n] for k, n in counts.items())
 
 
 def _tm_held_line(name, cfg, one: dict, ranks: list, card: str) -> dict:
@@ -3765,66 +3822,92 @@ def _tm_held_line(name, cfg, one: dict, ranks: list, card: str) -> dict:
     return line
 
 
-def _phase_train_mesh(dev) -> None:
+def _tm_start(pool, only_bf16: bool = False) -> tuple:
+    """Phase 3j's world started in ``pool``: (its jobs, the future of its
+    ranks).  The held jobs' global batches, the bf16 reading's, granite's
+    Trainer checkpointing into TM_DIR; ``only_bf16``: the reading alone."""
+    import shutil
+
+    cfgs = _tm_cfgs()
+    shutil.rmtree(TM_DIR, ignore_errors=True)
+    jobs = {} if only_bf16 else {
+        name: {"kind": "held", "cfg": cfgs[name],
+               "batches": _tm_batches(cfgs[name], TM_HELD_STEPS, seed)}
+        for name, seed in (("gpt2_fp32", 11), ("granite_fp32", 12))}
+    jobs["gpt2_bf16"] = {
+        "kind": "reading", "cfg": cfgs["gpt2_bf16"],
+        "batches": _tm_batches(cfgs["gpt2_bf16"], TM_BF16_STEPS, 14)}
+    if not only_bf16:
+        jobs["granite_ckpt"] = {"kind": "trainer",
+                                "cfg": cfgs["granite_fp32"],
+                                "ckpt_dir": str(TM_DIR / "mesh"),
+                                "steps": TM_CKPT_STEPS}
+    return jobs, _start_world(pool, _tm_rank, TM_DATA * TM_MODEL, jobs,
+                              data=TM_DATA)
+
+
+def _phase_train_mesh(dev, world=None, only_bf16: bool = False) -> dict:
     """Phase 3j: training under a (data 2 x model 2) mesh, four gloo ranks
     sharing the card.  gpt2-medium at full width and depth in fp32 and
     granite-moe-1b-a400m at full width cut to 2 layers are held to the
-    single-process step on the card (run first, in this process, on the
-    same seed-0 draw and global batches); gpt2-medium in bf16 is a
-    reading over TM_BF16_STEPS steps; granite's Trainer checkpoints under
-    the mesh, every rank's restored shards equal the state it saved, and
-    one process resumes it.  The einsum backend: no kernel
-    launches in the phase."""
+    single-process step on the card (run in this process, on the same
+    seed-0 draw and global batches); gpt2-medium in bf16 is a reading over
+    TM_BF16_STEPS steps; granite's Trainer checkpoints under the mesh,
+    every rank's restored shards equal the state it saved, and one process
+    resumes it.  Each job's peak is read beside the dry run's traced peak
+    of one of its steps (``_tm_dry``).  The einsum backend: no kernel
+    launches in the phase.  ``world`` is ``_tm_start``'s, when the world
+    was started earlier to run beside other phases; else it starts here
+    and runs beside this process's part.  Returns the bf16 reading's ranks
+    and its dry run (phase 6 holds the one to the other); ``only_bf16``
+    runs that job alone (``--dryrun``)."""
+    import concurrent.futures
     import shutil
 
     import torch
 
     from repro_torch.kernels import launches, reset_launches
-    from repro_torch.launch.mesh import Mesh, run_ranks
 
     card = _card_line()
     reset_launches()
     cfgs = _tm_cfgs()
-    shutil.rmtree(TM_DIR, ignore_errors=True)
-    held = {"gpt2_fp32": _tm_batches(cfgs["gpt2_fp32"], TM_HELD_STEPS, 11),
-            "granite_fp32": _tm_batches(cfgs["granite_fp32"], TM_HELD_STEPS,
-                                        12)}
-    t0 = time.perf_counter()
-    one = {}
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for name, batches in held.items():
-        torch.cuda.empty_cache()
-        one[name] = _tm_held(None, dev, cfgs[name], batches)
-        torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    jobs = {name: {"kind": "held", "cfg": cfgs[name], "batches": b}
-            for name, b in held.items()}
-    jobs["gpt2_bf16"] = {"kind": "reading", "cfg": cfgs["gpt2_bf16"],
-                         "batches": _tm_batches(cfgs["gpt2_bf16"],
-                                                TM_BF16_STEPS, 14)}
-    jobs["granite_ckpt"] = {"kind": "trainer", "cfg": cfgs["granite_fp32"],
-                            "ckpt_dir": str(TM_DIR / "mesh"),
-                            "steps": TM_CKPT_STEPS}
-    ranks = run_ranks(_tm_rank, TM_DATA * TM_MODEL, backend="gloo",
-                      device="cuda:0", data=TM_DATA, args=(jobs,),
-                      timeout_s=900)
-    t2 = time.perf_counter()
-    pred_mesh = Mesh(model=TM_MODEL, data=TM_DATA, device="cpu")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jobs, future = world or _tm_start(pool, only_bf16)
+        if only_bf16:
+            bf16 = jobs["gpt2_bf16"]
+            dry = _tm_dry(bf16["cfg"], bf16["batches"][0])
+            ranks, _ = future.result()
+            return {"ranks": [r["gpt2_bf16"] for r in ranks], "dry": dry}
+        held = ("gpt2_fp32", "granite_fp32")
+        t0 = time.perf_counter()
+        one = {}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for name in held:
+            torch.cuda.empty_cache()
+            one[name] = _tm_held(None, dev, cfgs[name],
+                                 jobs[name]["batches"])
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        dry = {j: _tm_dry(jobs[j]["cfg"], jobs[j]["batches"][0])
+               for j in ("gpt2_fp32", "gpt2_bf16", "granite_fp32")}
+        dry_s = time.perf_counter() - t1
+        ranks, world_s = future.result()
     emit({"phase": "train_mesh_world", "ranks": TM_DATA * TM_MODEL,
           "mesh": {"data": TM_DATA, "model": TM_MODEL}, "backend": "gloo",
           "device": "cuda:0 (shared)", "single_seconds": t1 - t0,
-          "world_seconds": t2 - t1,
+          "world_seconds": world_s,
+          "world_beside": "phases 3e-3h" if world else "this phase",
           "job_seconds": {j: [r[j]["seconds"] for r in ranks]
                           for j in jobs},
-          "note": "four ranks time-slice one card over gloo: not "
-                  "data-parallel speeds",
+          "note": "four ranks time-slice one card over gloo, and the "
+                  "phases named by world_beside: not data-parallel speeds",
           "max_memory_allocated_gb": {
               j: [r[j]["max_memory_allocated"] / 1e9 for r in ranks]
               for j in jobs},
-          "predicted_peak_gb": {
-              j: _tm_prediction(jobs[j]["cfg"], pred_mesh)
-              for j in ("gpt2_fp32", "gpt2_bf16", "granite_fp32")},
-          "card": card})
+          "traced_peak_gb": {j: c.peak_bytes / 1e9 for j, c in dry.items()},
+          "traced_peak_note": "launch/dryrun.py: one step on meta tensors "
+                              "at rank 0 of a shape-only mesh",
+          "dry_run_seconds": dry_s, "card": card})
     for name in held:
         _tm_held_line(name, cfgs[name], one[name],
                       [r[name] for r in ranks], card)
@@ -3836,6 +3919,8 @@ def _phase_train_mesh(dev) -> None:
           "step_wall_ms": [r["step_wall_ms"] for r in rd],
           "last_step_device_ms": [r["last_step_device_ms"] for r in rd],
           "collectives_per_step": rd[0]["collectives"][-1],
+          "collective_bytes_per_step": _records(
+              rd[0]["collective_bytes"][-1]),
           "max_memory_allocated_gb": [
               r["max_memory_allocated"] / 1e9 for r in rd],
           "card": card})
@@ -3873,6 +3958,113 @@ def _phase_train_mesh(dev) -> None:
           "rank_launches": rank_launches, "card": card})
     require(not counts and not any(any(v) for v in rank_launches.values()),
             f"phase 3j launched kernels: {counts} {rank_launches}")
+    return {"ranks": rd, "dry": dry["gpt2_bf16"]}
+
+
+# -- phase 6: the dry run held to the card ---------------------------------
+
+def _dryrun_train_batch() -> dict:
+    """Phase 3i's first batch (``--dryrun`` alone: the same draw)."""
+    from repro_torch.data import DataConfig, make_batches
+
+    it = make_batches(DataConfig(**TRAIN_DATA), prefetch=0)
+    batch = next(it)
+    it.close()
+    return batch
+
+
+def _phase_dryrun(dev, train: dict, mesh_run: dict) -> None:
+    """Phase 6: the dry run (``launch/dryrun.py``) against the steps the
+    card ran.  (a) 3j's gpt2-medium bf16 step: the dry run's collectives
+    at rank 0 of a shape-only data 2 x model 2 gloo mesh (``_tm_dry``) equal
+    every rank's count of its last step, by kind, axis, operand bytes and
+    number, and its per-kind numbers ``collectives()``'s; (b) 3i's
+    single-process gpt2-medium step (8 x 1024, bf16 over fp32 masters)
+    under remat "full" and "none": the traced peak on meta within
+    DRYRUN_PEAK_TOL of the step_peak_gb 3i read; (c) that step (remat
+    "full") counted on the card: its FLOPs equal the meta count's (bytes,
+    ops and peak a reading); (d) its roofline terms at the data-sheet
+    rates against 3i's device ms (a reading)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch.dryrun import count_train_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    card = _card_line()
+    # (a) collectives, exact
+    dry = mesh_run["dry"]
+    kinds = {}
+    for (kind, _, _), n in dry.collectives.items():
+        kinds[kind.replace("-", "_")] = kinds.get(kind.replace("-", "_"),
+                                                  0) + n
+    ranks = mesh_run["ranks"]
+    same = [r["collective_bytes"][-1] == dry.collectives for r in ranks]
+    counts = [r["collectives"][-1] == kinds for r in ranks]
+    emit({"phase": "dryrun_collectives", "model": "gpt2-medium",
+          "dtype": "bfloat16", "mesh": {"data": TM_DATA, "model": TM_MODEL},
+          "backend": "gloo", "dry_run": _records(dry.collectives),
+          "dry_run_kinds": kinds,
+          "ranks": [_records(r["collective_bytes"][-1]) for r in ranks],
+          "equal": same, "kinds_equal": counts,
+          "dry_run_peak_gb": dry.peak_bytes / 1e9, "card": card})
+    require(all(same) and all(counts), "dry run: 3j's collectives differ "
+            "from the dry run's")
+    # (b) peaks within DRYRUN_PEAK_TOL
+    cfg, batch = _train_gpt2_cfg(), train["batch"]
+    opt = adamw(lr=1e-4)          # _train_readings' optimizer
+    meta = {}
+    for remat in ("full", "none"):
+        c = dataclasses.replace(cfg, remat=remat)
+        meta[remat] = count_train_step(c, None, batch, opt)
+        read = train["readings"][remat]["step_peak_gb"] * 1e9
+        traced = meta[remat].peak_bytes
+        tol = max(DRYRUN_PEAK_TOL["rel"] * read,
+                  DRYRUN_PEAK_TOL["abs_bytes"])
+        emit({"phase": "dryrun_peak", "model": cfg.name, "remat": remat,
+              "batch": list(batch["tokens"].shape),
+              "traced_peak_gb": traced / 1e9, "step_peak_gb": read / 1e9,
+              "traced_over_read": traced / read, "tol_gb": tol / 1e9,
+              "arguments_gb": meta[remat].argument_bytes / 1e9,
+              "card": card})
+        require(abs(traced - read) <= tol, f"dry run: remat {remat}'s "
+                f"traced peak {traced / 1e9:.3f} GB is not within "
+                f"{tol / 1e9:.3f} GB of 3i's {read / 1e9:.3f} GB")
+    # (c) the step counted on the card
+    init, step = make_train_step(cfg, opt)
+    state = init(0, device=dev)
+    torch.cuda.synchronize()
+    on_card = H.count_step(step, state, batch)
+    torch.cuda.synchronize()
+    m = meta["full"]
+    emit({"phase": "dryrun_card_count", "model": cfg.name, "remat": "full",
+          "card": {"flops": on_card.flops, "bytes": on_card.bytes,
+                   "ops": on_card.ops, "peak_gb": on_card.peak_bytes / 1e9},
+          "meta": {"flops": m.flops, "bytes": m.bytes, "ops": m.ops,
+                   "peak_gb": m.peak_bytes / 1e9},
+          "flops_equal": on_card.flops == m.flops,
+          "bytes_equal": on_card.bytes == m.bytes,
+          "ops_equal": on_card.ops == m.ops, "card_name": card})
+    require(on_card.flops == m.flops, f"dry run: the card counts "
+            f"{on_card.flops} FLOPs in 3i's step, meta {m.flops}")
+    del state, on_card
+    torch.cuda.empty_cache()
+    # (d) the roofline terms against the card's device ms, a reading
+    tokens = int(np.prod(batch["tokens"].shape))
+    n_emb = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    terms = H.RooflineTerms(
+        hlo_flops=float(m.flops), hlo_bytes=float(m.bytes), coll_bytes=0.0,
+        n_chips=1, model_flops=float(6 * (cfg.active_param_count() - n_emb)
+                                     * tokens))
+    dev_ms = train["readings"]["full"]["step_device_ms"]
+    bound_ms = max(terms.t_compute, terms.t_memory) * 1e3
+    emit({"phase": "dryrun_roofline", "model": cfg.name, "remat": "full",
+          "terms": terms.as_dict(), "rates": {"peak_flops": H.PEAK_FLOPS,
+                                              "hbm_bw": H.HBM_BW},
+          "step_device_ms": dev_ms, "bound_ms": bound_ms,
+          "device_over_bound": dev_ms / bound_ms, "card": card})
 
 
 def _tp_snapshot(mesh, cfg, params, spec: dict) -> dict:
@@ -4263,25 +4455,37 @@ def _tpf_steps_lines(name: str, spec: dict, base: dict, rs: list) -> None:
                     f"tp families {name}: in_proj's B2 launches {c}")
 
 
-def _phase_tp_families(dev) -> None:
+def _tpf_start(pool) -> tuple:
+    """Phase 5e's world started in ``pool``: (its jobs, the future of its
+    ranks)."""
+    jobs = _tpf_jobs()
+    return jobs, _start_world(pool, _tpf_rank, TP, jobs)
+
+
+def _phase_tp_families(dev, world=None) -> None:
     """Phase 5e: every family at tp = 2, two gloo ranks sharing the card,
-    each job held to its tp = 1 run on the card (made first, in this
-    process)."""
+    each job held to its tp = 1 run on the card (made in this process).
+    ``world`` is ``_tpf_start``'s, when the world was started earlier to
+    run beside other phases; else it starts after the tp = 1 runs."""
+    import concurrent.futures
+
     import torch
 
-    from repro_torch.launch.mesh import run_ranks
-
-    jobs = _tpf_jobs()
-    t0 = time.perf_counter()
-    base = _tpf_rank(None, jobs)
-    t1 = time.perf_counter()
-    torch.cuda.empty_cache()
-    ranks = run_ranks(_tpf_rank, TP, backend="gloo", device="cuda:0",
-                      args=(jobs,), timeout_s=900)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jobs = world[0] if world else _tpf_jobs()
+        t0 = time.perf_counter()
+        base = _tpf_rank(None, jobs)
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        future = (world[1] if world
+                  else _start_world(pool, _tpf_rank, TP, jobs))
+        ranks, world_s = future.result()
     emit({"phase": "tp_families_world", "ranks": TP, "backend": "gloo",
           "device": "cuda:0 (shared)", "tp1_seconds": t1 - t0,
-          "world_seconds": time.perf_counter() - t1,
-          "note": "two ranks time-slice one card: not TP speeds",
+          "world_seconds": world_s,
+          "world_beside": "phases 3e-3h" if world else "none",
+          "note": "two ranks time-slice one card, and the phases named "
+                  "by world_beside: not TP speeds",
           "max_memory_allocated": {job: [r[job]["max_memory_allocated"]
                                          for r in ranks] for job in jobs}})
     for name, spec in jobs.items():
@@ -4290,6 +4494,39 @@ def _phase_tp_families(dev) -> None:
             _tpf_engine_lines(name, spec, base[name], rs)
         else:
             _tpf_steps_lines(name, spec, base[name], rs)
+
+
+def _parity_draws(vocab: int, Bp: int, Sp: int) -> tuple:
+    """Phase 4's seed-3 draws, in their order: the parity step's (Bp, Sp)
+    tokens, then the three traces that phases 4 and 5 serve.  Made once,
+    in phase 3, where phase 5c's world starts."""
+    import numpy as np
+
+    prng = np.random.default_rng(3)
+    toks = prng.integers(0, vocab, (Bp, Sp)).astype(np.int32)
+    prefix = list(prng.integers(0, vocab, 40))
+    shared = [np.asarray(prefix + [(17 * i + j) % vocab
+                                   for j in range(3 + i % 2)])
+              for i in range(4)]
+    traces = {
+        # (engine options, prompts, add one request every n steps; 0: all
+        # at once)
+        "plain": (dict(max_slots=4, max_len=128, chunk_size=64),
+                  [prng.integers(0, vocab, int(n))
+                   for n in (16, 33, 48, 64)], 0),
+        # 8 usable pages for 14 pages of demand: preemptions mid-flight
+        "preemption": (dict(max_slots=4, max_len=128, chunk_size=16,
+                            n_pages=9),
+                       [prng.integers(0, vocab, int(n))
+                        for n in (16, 33, 48, 64)], 0),
+        # a shared 40-token prefix; the repeat of the second prompt and
+        # the extension of the first match a committed partial page and
+        # fork it copy-on-write
+        "prefix_cow": (dict(max_slots=4, max_len=128, chunk_size=16),
+                       shared + [shared[1],
+                                 np.concatenate([shared[0], [5, 6]])], 3),
+    }
+    return toks, traces
 
 
 def main() -> int:
@@ -4325,7 +4562,7 @@ def main() -> int:
                                            paged_attention_span_plain,
                                            paged_attention_span_sharded,
                                            span_geometry)
-    from repro_torch.launch.mesh import Mesh, run_ranks
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as T
     from repro_torch.models.decode_path import (decode_weight_bytes,
                                                 prepare_decode_params)
@@ -4341,10 +4578,15 @@ def main() -> int:
     t_phase = [t_start]
 
     def phase_done(name: str) -> None:
-        """Print the seconds since the last phase ended."""
+        """Print the seconds since the last phase ended, and the most this
+        process reserved on the card meanwhile (the worlds that run beside
+        phases 3-3h must fit beside it)."""
         now = time.perf_counter()
         emit({"phase": "phase_seconds", "name": name,
-              "seconds": now - t_phase[0]})
+              "seconds": now - t_phase[0],
+              "max_memory_reserved_gb": torch.cuda.max_memory_reserved()
+              / 1e9})
+        torch.cuda.reset_peak_memory_stats()
         t_phase[0] = now
 
     # -- 1. build ------------------------------------------------------------
@@ -4368,6 +4610,20 @@ def main() -> int:
     if "--train-mesh" in sys.argv[1:]:
         # phase 3j alone
         _phase_train_mesh(dev)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "card": _card_line()})
+        return 0
+
+    if "--dryrun" in sys.argv[1:]:
+        # phase 6 alone, after the steps of 3i and 3j it holds the dry run to
+        batch = _dryrun_train_batch()
+        readings = _train_readings(_train_gpt2_cfg(), batch, dev,
+                                   _card_line())
+        torch.cuda.empty_cache()
+        mesh_run = _phase_train_mesh(dev, only_bf16=True)
+        phase_done("6 3i step readings and 3j bf16 world")
+        _phase_dryrun(dev, {"readings": readings, "batch": batch}, mesh_run)
+        phase_done("6 dry run")
         emit({"phase": "done", "seconds": time.perf_counter() - t_start,
               "card": _card_line()})
         return 0
@@ -4432,9 +4688,17 @@ def main() -> int:
         its host time reads the host's rate.  Third, the card's own ms per
         call: the median of the same loops issued while the card is held
         busy for longer than the issue takes, so that the calls run back to
-        back on the card."""
-        for _ in range(3):
+        back on the card.  ``iters`` is cut so that a loop takes about
+        TIME_LOOP_MS, as the second warm call measured it."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        if one_ms < TIME_LOOP_MS:
             fn()
+        iters = max(1, min(iters, int(TIME_LOOP_MS / max(one_ms, 1e-3))))
         torch.cuda.synchronize()
         runs, card, issue_s = [], [], 0.0
         for held in (False, True):
@@ -5838,6 +6102,19 @@ def main() -> int:
         x3_summary, x3_summary["bound_ms"], x3_summary["bound_by"])
     phase_done("2 kernels")
 
+    # the gloo worlds of phases 5c, 3j and 5e run in the background, where
+    # this process's phases leave the card room: 5c's (2 ranks of ~3 GB)
+    # beside phases 3c-3d (which reserve up to ~56 GB), then 3j's (4 ranks
+    # of ~7 GB) and 5e's (2 ranks of up to ~14 GB), one at a time, beside
+    # 3e-3h (up to ~38 GB).  All are joined before phase 3i, whose remat
+    # "none" step alone takes ~45 GB, and none runs beside the timed
+    # kernels of phases 2 and 5a
+    import concurrent.futures
+    import shutil
+
+    worlds = concurrent.futures.ThreadPoolExecutor(1)
+    tp_pool = concurrent.futures.ThreadPoolExecutor(1)
+
     # -- 3. serve gpt2-medium at full width ---------------------------------
     serve = _serve
 
@@ -5885,12 +6162,66 @@ def main() -> int:
     serve_counts = dict(counts)
     del eng
 
+    # phase 5c's world, started here: the tp = 1 snapshot the ranks
+    # restore at tp = 2 (the plain trace after 3 steps), and its jobs:
+    # phase 4's fp32 traces, over int8 KV pages, with int8 and int4
+    # factors, and phase 3's bf16 serve
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    Bp, Sp = 4, 64
+    toks, traces = _parity_draws(cfg.vocab, Bp, Sp)
+    qopts = dict(quantize="int8", fuse_projections=True, kv_dtype="int8")
+    fp32_traces = {t: (dict(page_size=16, use_paged_kernel=True, **kw),
+                       [np.asarray(p) for p in prompts], stagger, 8)
+                   for t, (kw, prompts, stagger) in traces.items()}
+    int8_traces = {t: ({**kw, "kv_dtype": "int8"}, *rest)
+                   for t, (kw, *rest) in fp32_traces.items()}
+    # the compressed decode path under tensor parallelism (prepared whole,
+    # then sharded): int8 and packed-int4 factors with fused QKV and
+    # up/gate over fp32 pages, and int8 factors over int8 pages
+    qtp_opts = {"int8_fused": dict(quantize="int8", fuse_projections=True),
+                "int4_fused": dict(quantize="int4", fuse_projections=True),
+                "int8_fused_int8_kv": qopts}
+    qtp_traces = {job: {t: ({**kw, **o}, *rest)
+                        for t, (kw, *rest) in fp32_traces.items()}
+                  for job, o in qtp_opts.items()}
+    tp_dirs = {t: FT_DIR / f"tp{t}" for t in (1, TP)}
+    for d in tp_dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    plain_kw, plain_prompts, _ = traces["plain"]
+    p_snap = T.init_params(cfg32, seed=3, device=dev)
+    eng = ContinuousBatchingEngine(cfg32, p_snap, page_size=16,
+                                   use_paged_kernel=True, **plain_kw)
+    tp1_done: dict = {}
+    tp1_reqs = _ft_serve(eng, tp1_done, "the tp=1 serve to its snapshot",
+                         trace=[(p, SamplingParams(max_new_tokens=8))
+                                for p in plain_prompts], steps=3)
+    eng.save_snapshot(tp_dirs[1])
+    del eng, p_snap
+    tp_jobs = {
+        "fp32": {"cfg": cfg32, "seed": 3, "traces": fp32_traces,
+                 "record": True},
+        "int8_kv": {"cfg": cfg32, "seed": 3, "traces": int8_traces},
+        **{job: {"cfg": cfg32, "seed": 3, "traces": tr,
+                 "record": "int8_kv" not in job}
+           for job, tr in qtp_traces.items()},
+        "bf16": {"cfg": cfg, "seed": 0, "profile": True, "traces": {
+            "serve": ({**SERVE_KW, "pool_bytes": fp_serve["pool_bytes"]},
+                      _serve_prompts(cfg.vocab, 8, 32, 256, 0), 0, 32)}},
+        # the tp = 1 snapshot restored at tp = 2; a tp = 2 snapshot saved
+        "snapshot": {"cfg": cfg32, "seed": 3, "traces": {}, "snapshot": {
+            "tp1_dir": str(tp_dirs[1]), "tp2_dir": str(tp_dirs[TP]),
+            "engine": dict(page_size=16, use_paged_kernel=True,
+                           **plain_kw),
+            "prompts": [np.asarray(p) for p in plain_prompts],
+            "steps": 3}},
+    }
+    tp_world = _start_world(tp_pool, _tp_rank, TP, tp_jobs)
+
     emit({"phase": "serve_profile", **_profile_serve(cfg, params)})
     emit({"phase": "serve_cow_window", **_cow_window(cfg, params)})
 
     # -- 3b. the compressed decode path: fused QKV, int8/int4 factors, int8
-    # KV pages --------------------------------------------------------------
-    qopts = dict(quantize="int8", fuse_projections=True, kv_dtype="int8")
+    # KV pages (qopts: above) -----------------------------------------------
     # quantization on the card is bitwise the CPU's
     p_cpu = tree_to(params, "cpu")
     for bits in (8, 4):
@@ -6226,7 +6557,11 @@ def main() -> int:
         a Monarch matrix of its own, against the card's factors of those
         rows.  Every matrix's ``monarch_to_dense`` card vs CPU (Frobenius
         distance relative to ||M||) and the worst (p x s) slice (relative
-        to the slice's own norm).  Returns the card's converted tree."""
+        to the slice's own norm).  Returns the card's converted tree.  With
+        ``every`` 1 the CPU converts on a worker thread while the card
+        does (each side's seconds are its own, the other beside it)."""
+        import concurrent.futures
+
         stamps: list = []
 
         def timed_select(path, leaf):
@@ -6234,19 +6569,25 @@ def main() -> int:
             stamps.append((path, time.perf_counter()))
             return select(path, leaf)
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        conv, reps = convert_tree(params, timed_select)
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t0
-        stamps.append(("", time.perf_counter()))
+        def on_cpu(tree):
+            t0 = time.perf_counter()
+            return convert_tree(tree, select), time.perf_counter() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            if every == 1:
+                cpu_side = pool.submit(on_cpu, tree_to(params, "cpu"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            conv, reps = convert_tree(params, timed_select)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            stamps.append(("", time.perf_counter()))
+            if every == 1:
+                (conv_cpu, reps_cpu), t_cpu = cpu_side.result()
         names = {r.name for r in reps}
         per_leaf = {p: stamps[i + 1][1] - t
                     for i, (p, t) in enumerate(stamps[:-1]) if p in names}
-        t0 = time.perf_counter()
         if every == 1:
-            conv_cpu, reps_cpu = convert_tree(tree_to(params, "cpu"),
-                                              select)
             require([(r.name, r.dims) for r in reps]
                     == [(r.name, r.dims) for r in reps_cpu],
                     f"{what}: card and CPU converted other matrices")
@@ -6255,6 +6596,7 @@ def main() -> int:
                         f"{what} {r.name}: projection errors differ card "
                         f"vs CPU: {r.rel_error} / {rc.rel_error}")
         else:
+            t0 = time.perf_counter()
             conv_cpu = {}
             for r in reps:
                 w = _leaf(params, r.name).cpu()
@@ -6265,7 +6607,7 @@ def main() -> int:
                 Lc, Rc = project_to_monarch(
                     rows.reshape(*lead, sub.din, r.dout), sub)
                 conv_cpu[r.name] = {"L": Lc, "R": Rc}
-        t_cpu = time.perf_counter() - t0
+            t_cpu = time.perf_counter() - t0
         worst_m, worst_s = {"rel": -1.0}, {"rel_to_slice": -1.0}
         n_mat = dense = sparse = 0
         for r in reps:
@@ -6503,7 +6845,10 @@ def main() -> int:
             "the d2s_convert example did not end with 'd2s_convert OK'")
     phase_done("3d CIM, calibration and quickstart")
 
-    # -- 3e. fault-tolerant serving ---------------------------------------
+    # -- 3e. fault-tolerant serving (3j's and 5e's worlds start beside
+    # it) ------------------------------------------------------------------
+    tm_world = _tm_start(worlds)
+    tpf_world = _tpf_start(worlds)
     _phase_ft(dev)
     phase_done("3e fault-tolerant serving")
 
@@ -6532,7 +6877,12 @@ def main() -> int:
     # -- 3i. training: card vs CPU at 2 layers (gpt2-medium, granite-moe,
     # mamba2), gpt2-medium trained at full width and depth and resumed from
     # its checkpoint, the kernels' refusal of autograd ----------------------
-    _phase_train(dev)
+    t0 = time.perf_counter()
+    concurrent.futures.wait([tm_world[1], tpf_world[1], tp_world])
+    emit({"phase": "worlds_joined", "waited_seconds": time.perf_counter() - t0,
+          "note": "this process waited for the gloo worlds of phases 3j, "
+                  "5c and 5e that ran beside phases 3-3h"})
+    train_run = _phase_train(dev)
     torch.cuda.empty_cache()
     phase_done("3i training")
 
@@ -6540,17 +6890,15 @@ def main() -> int:
     # the card held to the single-process step (gpt2-medium fp32 at full
     # width and depth, granite-moe-1b-a400m fp32 at 2 layers), gpt2-medium
     # bf16 as a reading, granite's mesh checkpoint resumed by one process
-    _phase_train_mesh(dev)
+    mesh_run = _phase_train_mesh(dev, tm_world)
     torch.cuda.empty_cache()
     phase_done("3j training under the mesh")
 
     # -- 4. card vs CPU at full width, fp32 ---------------------------------
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # cfg32, Bp, Sp and the seed-3 draws ``toks``: phase 3's
     p_gpu = T.init_params(cfg32, seed=3, device=dev)
     p_cpu = tree_to(p_gpu, "cpu")
-    Bp, Sp, mpp = 4, 64, 8
-    prng = np.random.default_rng(3)
-    toks = prng.integers(0, cfg.vocab, (Bp, Sp)).astype(np.int32)
+    mpp = 8
     table = (1 + np.arange(Bp * mpp, dtype=np.int32)).reshape(Bp, mpp)
     spans_np = np.array([64, 40, 17, 1], np.int32)
 
@@ -6844,28 +7192,7 @@ def main() -> int:
     # same limit as the single step above
     step_logits: list = []
 
-    prefix = list(prng.integers(0, cfg.vocab, 40))
-    shared = [np.asarray(prefix + [(17 * i + j) % cfg.vocab
-                                   for j in range(3 + i % 2)])
-              for i in range(4)]
-    traces = {
-        # (engine options, prompts, add one request every n steps; 0: all
-        # at once)
-        "plain": (dict(max_slots=4, max_len=128, chunk_size=64),
-                  [prng.integers(0, cfg.vocab, int(n))
-                   for n in (16, 33, 48, 64)], 0),
-        # 8 usable pages for 14 pages of demand: preemptions mid-flight
-        "preemption": (dict(max_slots=4, max_len=128, chunk_size=16,
-                            n_pages=9),
-                       [prng.integers(0, cfg.vocab, int(n))
-                        for n in (16, 33, 48, 64)], 0),
-        # a shared 40-token prefix; the repeat of the second prompt and
-        # the extension of the first match a committed partial page and
-        # fork it copy-on-write
-        "prefix_cow": (dict(max_slots=4, max_len=128, chunk_size=16),
-                       shared + [shared[1],
-                                 np.concatenate([shared[0], [5, 6]])], 3),
-    }
+    # the traces: _parity_draws's, drawn in phase 3
     stat_keys = ("mixed_steps", "preemptions", "prefix_hit_tokens",
                  "cow_forks", "kernel_dispatches", "dense_fallbacks")
     card_runs: dict = {}   # (phase, trace) -> the card's run, for phase 5
@@ -7249,75 +7576,27 @@ def main() -> int:
     # 5b. the tp = 1 runs on the card the ranks are held to: phase 4's fp32
     # traces and phase 3's bf16 serve, the traces again with fp32 factors
     # over int8 KV pages, and with int4 factors (phase 4b's and 4c's int8
-    # runs serve as theirs)
+    # runs serve as theirs; the jobs and the tp = 1 snapshot: phase 3's)
     del q_gpu, q_cpu
-    fp32_traces = {t: (dict(page_size=16, use_paged_kernel=True, **kw),
-                       [np.asarray(p) for p in prompts], stagger, 8)
-                   for t, (kw, prompts, stagger) in traces.items()}
-    int8_traces = {t: ({**kw, "kv_dtype": "int8"}, *rest)
-                   for t, (kw, *rest) in fp32_traces.items()}
     int8_base = _tp_rank(None, {"int8_kv": {"cfg": cfg32, "seed": 3,
                                             "traces": int8_traces}})
     int8_base = int8_base["int8_kv"]["traces"]
-    # the compressed decode path under tensor parallelism (prepared whole,
-    # then sharded): int8 and packed-int4 factors with fused QKV and
-    # up/gate over fp32 pages, and int8 factors over int8 pages; int8's
-    # tp = 1 runs are phase 4b's and 4c's, int4's run here
-    qtp_opts = {"int8_fused": dict(quantize="int8", fuse_projections=True),
-                "int4_fused": dict(quantize="int4", fuse_projections=True),
-                "int8_fused_int8_kv": qopts}
-    qtp_traces = {job: {t: ({**kw, **o}, *rest)
-                        for t, (kw, *rest) in fp32_traces.items()}
-                  for job, o in qtp_opts.items()}
     int4_base = _tp_rank(None, {"int4_fused": {
         "cfg": cfg32, "seed": 3, "traces": qtp_traces["int4_fused"],
         "record": True}})["int4_fused"]["traces"]
     p32_sum = _checksum(p_gpu)
-    # the tp = 1 snapshot the ranks restore at tp = 2: the plain trace
-    # after 3 steps
-    import shutil
-
-    tp_dirs = {t: FT_DIR / f"tp{t}" for t in (1, TP)}
-    for d in tp_dirs.values():
-        shutil.rmtree(d, ignore_errors=True)
-    plain_kw, plain_prompts, _ = traces["plain"]
-    eng = ContinuousBatchingEngine(cfg32, p_gpu, page_size=16,
-                                   use_paged_kernel=True, **plain_kw)
-    tp1_done: dict = {}
-    tp1_reqs = _ft_serve(eng, tp1_done, "the tp=1 serve to its snapshot",
-                         trace=[(p, SamplingParams(max_new_tokens=8))
-                                for p in plain_prompts], steps=3)
-    eng.save_snapshot(tp_dirs[1])
-    del eng
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
 
     phase_done("5b tp=1 baselines")
 
-    # 5c. TP ranks, one process each, sharing the card over gloo
-    jobs = {
-        "fp32": {"cfg": cfg32, "seed": 3, "traces": fp32_traces,
-                 "record": True},
-        "int8_kv": {"cfg": cfg32, "seed": 3, "traces": int8_traces},
-        **{job: {"cfg": cfg32, "seed": 3, "traces": tr,
-                 "record": "int8_kv" not in job}
-           for job, tr in qtp_traces.items()},
-        "bf16": {"cfg": cfg, "seed": 0, "profile": True, "traces": {
-            "serve": ({**SERVE_KW, "pool_bytes": fp_serve["pool_bytes"]},
-                      _serve_prompts(cfg.vocab, 8, 32, 256, 0), 0, 32)}},
-        # the tp = 1 snapshot restored at tp = 2; a tp = 2 snapshot saved
-        "snapshot": {"cfg": cfg32, "seed": 3, "traces": {}, "snapshot": {
-            "tp1_dir": str(tp_dirs[1]), "tp2_dir": str(tp_dirs[TP]),
-            "engine": dict(page_size=16, use_paged_kernel=True,
-                           **plain_kw),
-            "prompts": [np.asarray(p) for p in plain_prompts],
-            "steps": 3}},
-    }
-    t0 = time.perf_counter()
-    ranks = run_ranks(_tp_rank, TP, backend="gloo", device="cuda:0",
-                      args=(jobs,), timeout_s=900)
+    # 5c. TP ranks, one process each, sharing the card over gloo (started
+    # in phase 3)
+    jobs = tp_jobs
+    ranks, tp_world_s = tp_world.result()
     emit({"phase": "tp_world", "ranks": TP, "backend": "gloo",
-          "device": "cuda:0 (shared)", "seconds": time.perf_counter() - t0,
+          "device": "cuda:0 (shared)", "seconds": tp_world_s,
+          "world_beside": "phases 3-3d",
           "max_memory_allocated": [r["max_memory_allocated"]
                                    for r in ranks]})
     bases = {"fp32": {t: card_runs[("parity_tokens", t)] for t in traces},
@@ -7399,7 +7678,8 @@ def main() -> int:
                         f"tp int8 KV {tname}: token agreement {agree}")
         if spec.get("profile"):
             emit({"phase": "tp_profile", "job": job,
-                  "note": "two ranks time-slice one card without MPS",
+                  "note": "two ranks time-slice one card without MPS, "
+                          "beside phases 3-3d",
                   "per_rank": [r[job]["profile"] for r in ranks]})
     # the main path's launches: the bf16 serve's (B7), the int8-KV traces'
     # (B7 over int8 pages); counts of rank 0
@@ -7456,8 +7736,16 @@ def main() -> int:
     # fp32) and qwen2-moe-a2.7b (fp32, int8 fused) through the engine with
     # expert parallelism, mamba2-2.7b, zamba2-7b and seamless-m4t-large-v2
     # through the serving steps, each held to its tp = 1 run on the card
-    _phase_tp_families(dev)
+    _phase_tp_families(dev, tpf_world)
+    worlds.shutdown()
+    tp_pool.shutdown()
     phase_done("5e tp families")
+
+    # -- 6. the dry run held to 3i's and 3j's steps: 3j's collectives
+    # exactly, 3i's peaks within DRYRUN_PEAK_TOL, its FLOPs card == meta --
+    torch.cuda.empty_cache()
+    _phase_dryrun(dev, train_run, mesh_run)
+    phase_done("6 dry run")
 
     # -- summary --------------------------------------------------------------
     kernels = []
@@ -7487,4 +7775,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        WORLD_STOP.set()
+    sys.exit(code)

@@ -21,6 +21,12 @@ fail instead of hanging.
 :func:`run_ranks` starts a whole world on one host (the CPU tests, the
 one-card smoke run): one spawned process per rank, joined before it
 returns, and an error if any rank failed.
+
+:func:`make_production_mesh` is the reference's ``(16, 16)`` mesh as one
+rank sees it, with no world behind it: its groups are shape-only
+(``sharding.api.ShapeGroup``) and its device ``meta``, so the dry run
+(``launch.dryrun``) traces that rank's step without a card
+(:func:`shape_mesh` builds the same at any axis sizes).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import dataclasses
 import datetime
 import os
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Optional, Sequence
@@ -37,9 +44,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.sharding import api
 
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=60)
 BACKENDS = ("gloo", "nccl")
+PRODUCTION_MESH = (16, 16)          # the reference's single pod: data x model
 
 
 def rank_device(device: DeviceLike = None) -> torch.device:
@@ -87,7 +96,7 @@ class Mesh:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{self.backend!r}")
         dev = rank_device(self.device)
-        if self.backend == "nccl" and dev.type != "cuda":
+        if self.backend == "nccl" and dev.type not in ("cuda", "meta"):
             raise ValueError("the nccl backend needs a CUDA device per rank")
         object.__setattr__(self, "device", dev)
 
@@ -154,10 +163,42 @@ def make_host_mesh(*, model: int, rank: int, backend: str,
         raise ValueError(f"process group runs {dist.get_backend()}, mesh "
                          f"asks {backend}")
     group, data_group = _axis_groups(model, data, rank, backend)
+    api.name_axis(group, "model")
+    if data_group is not None:
+        api.name_axis(data_group, "data")
     host = dist.group.WORLD if backend == "gloo" else dist.new_group(
         backend="gloo", timeout=COLLECTIVE_TIMEOUT)
     return dataclasses.replace(mesh, group=group, data_group=data_group,
                                host_group=host)
+
+
+def shape_mesh(data: int, model: int, *, rank: int = 0,
+               backend: str = "nccl") -> Mesh:
+    """World rank ``rank``'s view of a ``data x model`` mesh with no world
+    behind it: device ``meta``, the model group and (at ``data > 1``) the
+    data group shape-only (``sharding.api.ShapeGroup``: axis, size, this
+    rank's index, ``backend``), no host group.  A step traced on it runs
+    every operation of that rank's step on meta tensors and records each
+    collective instead of running it."""
+    mesh = Mesh(model=model, rank=rank, data=data, device="meta",
+                backend=backend)
+    group = api.ShapeGroup("model", model, mesh.model_rank, backend)
+    data_group = None if data == 1 else api.ShapeGroup(
+        "data", data, mesh.data_rank, backend)
+    return dataclasses.replace(mesh, group=group, data_group=data_group)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                         backend: str = "nccl") -> Mesh:
+    """The reference's single-pod mesh, data 16 x model 16, as world rank
+    ``rank`` sees it (:func:`shape_mesh`).  ``multi_pod`` (the reference's
+    ``(2, 16, 16)`` with a ``"pod"`` axis) raises: that axis is not
+    ported (ROADMAP.md §A)."""
+    if multi_pod:
+        raise NotImplementedError(
+            "the multi-pod mesh's 'pod' axis is not ported yet "
+            "(ROADMAP.md §A)")
+    return shape_mesh(*PRODUCTION_MESH, rank=rank, backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +227,8 @@ def _rank_main(fn, rank: int, world: int, backend: str, device, store_path,
 def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
               device: DeviceLike = None, args: Sequence = (),
               workdir: Optional[os.PathLike] = None,
-              timeout_s: float = 600.0, data: int = 1) -> list:
+              timeout_s: float = 600.0, data: int = 1,
+              stop: Optional[threading.Event] = None) -> list:
     """Run ``fn(mesh, *args)`` on ``world`` ranks, one spawned process
     each, over ``backend`` on ``device`` (every rank on the same device:
     the CPU, or one card shared by all), as a ``data x (world / data)``
@@ -194,8 +236,9 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
     in rank order (through ``torch.save``, so tensors and plain Python
     values travel).  ``fn`` must be importable by name from a fresh
     process.  Every process is joined before this returns; if any rank
-    exits non-zero or outlives ``timeout_s``, the others are stopped and
-    this raises."""
+    exits non-zero or outlives ``timeout_s``, or ``stop`` is set (by a
+    caller that runs the world in a thread of its own and gives up on it),
+    the others are stopped and this raises."""
     if data < 1 or world % data:
         raise ValueError(f"data={data} does not divide the {world} ranks")
     ctx = torch.multiprocessing.get_context("spawn")
@@ -208,7 +251,7 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
         for p in procs:
             p.start()
         t_end = time.monotonic() + timeout_s
-        timed_out = False
+        timed_out = stopped = False
         try:
             # poll every rank, so one that fails stops the world at once
             # instead of after its peers' collective timeout
@@ -217,6 +260,9 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
                     break
                 if time.monotonic() > t_end:
                     timed_out = True
+                    break
+                if stop is not None and stop.is_set():
+                    stopped = True
                     break
                 time.sleep(0.05)
         finally:
@@ -232,6 +278,8 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
                   for r, p in enumerate(procs) if p.exitcode != 0]
         if timed_out:
             failed.insert(0, f"timed out after {timeout_s} s")
+        if stopped:
+            failed.insert(0, "stopped by its caller")
         if failed:
             raise RuntimeError("tensor-parallel world failed: "
                                + "; ".join(failed))
@@ -239,4 +287,5 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
 
 
 __all__ = ["Mesh", "make_host_mesh", "rank_device", "run_ranks",
+           "shape_mesh", "make_production_mesh", "PRODUCTION_MESH",
            "COLLECTIVE_TIMEOUT", "BACKENDS"]

@@ -130,6 +130,12 @@ def _joined(mesh) -> None:
         raise ValueError(
             "the mesh has no process group (a shape alone): join the world "
             "with launch.mesh.make_host_mesh")
+    shape_only = any(isinstance(g, api.ShapeGroup)
+                     for g in (mesh.group, mesh.data_group))
+    if shape_only and mesh.device.type != "meta":
+        raise ValueError(
+            f"a mesh of shape-only groups traces meta tensors only, not "
+            f"{mesh.device} (launch.mesh.shape_mesh)")
 
 
 def train_plan(cfg: ModelConfig, mesh) -> tuple:

@@ -37,11 +37,23 @@ use implies (Megatron's pair and its relatives):
   backward: the vocab-parallel logits;
 * :func:`gather_scatter` -- all-gather forward, reduce-scatter (sum)
   backward: an FSDP parameter shard.
+
+**Shape-only groups** (:class:`ShapeGroup`) stand in for a process group
+where no world exists: the dry run (``launch.dryrun``) traces one rank
+of a production mesh on ``meta`` tensors.  A collective over one refuses
+any tensor that is not ``meta`` (so it can never stand in for a real
+collective), runs every operation the real call runs around the
+collective itself, and returns a ``meta`` tensor of the shape the real
+call returns.  On either kind of group each collective is counted by
+``(kind, axis, operand bytes)`` (:func:`collective_bytes`), in the
+reference's HLO names: ``"all-reduce"`` (the fp32 operand), ``"all-gather"``
+(this rank's part) and ``"reduce-scatter"`` (the whole fp32 operand).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -49,6 +61,62 @@ import torch.distributed as dist
 # device collectives issued through this module, by kind (a reading for
 # the train step's collectives a step: ``collectives()``)
 _COUNTS: collections.Counter = collections.Counter()
+# and by (kind, axis, operand bytes): a bounded table however long a
+# server runs
+_RECORDS: collections.Counter = collections.Counter()
+# the mesh axis of each joined process group (``launch.mesh``)
+_AXES: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeGroup:
+    """A process group's shape alone: its mesh axis, size, this rank's
+    index on it and the backend a real group would run.  Collectives over
+    it take ``meta`` tensors only (module docstring)."""
+
+    axis: str
+    size: int
+    rank: int
+    backend: str
+
+
+def name_axis(group, axis: str) -> None:
+    """Record that the joined process group ``group`` is the mesh's
+    ``axis`` group (its collectives' records carry that name)."""
+    _AXES[group] = axis
+
+
+def _size(group) -> int:
+    if isinstance(group, ShapeGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    if isinstance(group, ShapeGroup):
+        return group.rank
+    return dist.get_rank(group)
+
+
+def _backend(group) -> str:
+    if isinstance(group, ShapeGroup):
+        return group.backend
+    return dist.get_backend(group)
+
+
+def _guard(x: torch.Tensor, group) -> None:
+    if isinstance(group, ShapeGroup) and x.device.type != "meta":
+        raise RuntimeError(
+            f"a shape-only {group.axis!r} group runs no collective: it "
+            f"takes meta tensors only, got one on {x.device}")
+
+
+def _issue(kind: str, group, operand: torch.Tensor) -> bool:
+    """Count one collective; True where ``group`` is a joined group (the
+    caller runs it), False for a shape-only one."""
+    axis = group.axis if isinstance(group, ShapeGroup) else _AXES.get(group)
+    _RECORDS[(kind, axis, operand.numel() * operand.element_size())] += 1
+    return not isinstance(group, ShapeGroup)
 
 
 def collectives() -> dict:
@@ -59,6 +127,17 @@ def collectives() -> dict:
 
 def reset_collectives() -> None:
     _COUNTS.clear()
+
+
+def collective_bytes() -> dict:
+    """{(kind, axis, operand bytes): count} of the device collectives
+    issued through this module since :func:`reset_collective_bytes`; the
+    axis is None for a group no mesh named."""
+    return dict(_RECORDS)
+
+
+def reset_collective_bytes() -> None:
+    _RECORDS.clear()
 
 
 def divides(dim: int, tp: int) -> bool:
@@ -72,11 +151,13 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def _reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    _guard(x, group)
     _COUNTS["all_reduce"] += 1
     y = x.float().contiguous()
     if y is x:
         y = y.clone()
-    dist.all_reduce(y, op=_OPS[op], group=group)
+    if _issue("all-reduce", group, y):
+        dist.all_reduce(y, op=_OPS[op], group=group)
     return y.to(x.dtype)
 
 
@@ -88,10 +169,12 @@ def reduce_stats(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
 
 def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    _guard(x, group)
     _COUNTS["all_gather"] += 1
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    parts = [torch.empty_like(x) for _ in range(_size(group))]
+    if _issue("all-gather", group, x):
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -108,20 +191,22 @@ def all_gather_cat(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
 
 
 def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    n = x.shape[dim] // dist.get_world_size(group)
-    return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+    _guard(x, group)
+    n = x.shape[dim] // _size(group)
+    return x.narrow(dim, _rank(group) * n, n).contiguous()
 
 
 def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's slice on ``dim`` of the ranks' sum (fp32 accumulate).
     gloo has no reduce-scatter: it sums the whole and slices."""
-    if dist.get_backend(group) != "nccl":
+    if _backend(group) != "nccl":
         return _slice(_reduce(x, group), group, dim)
+    _guard(x, group)
     _COUNTS["reduce_scatter"] += 1
     y = x.float().movedim(dim, 0).contiguous()
-    out = y.new_empty((y.shape[0] // dist.get_world_size(group),
-                       *y.shape[1:]))
-    dist.reduce_scatter_tensor(out, y, group=group)
+    out = y.new_empty((y.shape[0] // _size(group), *y.shape[1:]))
+    if _issue("reduce-scatter", group, y):
+        dist.reduce_scatter_tensor(out, y, group=group)
     return out.movedim(0, dim).contiguous().to(x.dtype)
 
 
@@ -234,4 +319,5 @@ def barrier(mesh) -> None:
 __all__ = ["divides", "all_reduce_sum", "all_gather_cat", "broadcast_time",
            "barrier", "reduce_from", "copy_to", "reduce_both",
            "gather_slice", "gather_scatter", "split_input", "reduce_stats",
-           "collectives", "reset_collectives"]
+           "collectives", "reset_collectives", "collective_bytes",
+           "reset_collective_bytes", "ShapeGroup", "name_axis"]

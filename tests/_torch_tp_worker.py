@@ -302,6 +302,11 @@ def fail_on_rank_one(mesh) -> None:
     api.all_reduce_sum(torch.ones(2), mesh)
 
 
+def sleep_long(mesh) -> None:
+    """Every rank sleeps past any test's patience: only a stop ends it."""
+    time.sleep(300)
+
+
 def prompts(vocab: int, n: int, lo: int = 8, hi: int = 14,
             seed: int = 0) -> list[list[int]]:
     rng = np.random.RandomState(seed)

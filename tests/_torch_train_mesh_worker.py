@@ -24,7 +24,10 @@ and returns one result a job.  A job is a dict with ``kind``:
   the joined world's: its ``ValueError``'s message;
 * ``"serve"``: ``make_prefill_step(cfg, plan)`` on the rank's
   ``"model"`` shards of ``params`` and its rows of ``tokens``: the
-  last position's logits.
+  last position's logits;
+* ``"collectives"``: one ``make_train_step(cfg, adamw(**opt), mesh=)``
+  step on ``params`` and the rank's rows of ``batch``: the collectives
+  it issued (``sharding.api.collective_bytes()``).
 """
 
 from __future__ import annotations
@@ -160,8 +163,23 @@ def _serve(mesh, job):
         shard_params(params, plan), S.batch_to(rows, "cpu"))
 
 
+def _collectives(mesh, job):
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import api
+
+    init, step = S.make_train_step(job["cfg"], adamw(**job["opt"]),
+                                   mesh=mesh)
+    state = init(params=params_from_numpy(job["params"], device="cpu"))
+    api.reset_collective_bytes()
+    step(state, S.shard_batch(job["batch"], mesh))
+    return api.collective_bytes()
+
+
 _KINDS = {"serve": _serve, "steps": _steps, "init": _init, "raises": _raises,
-          "trainer": _trainer, "mesh_mismatch": _mesh_mismatch}
+          "trainer": _trainer, "mesh_mismatch": _mesh_mismatch,
+          "collectives": _collectives}
 
 
 def run_jobs(mesh, jobs: list) -> list:

@@ -26,6 +26,7 @@ collectives over a spawned gloo world, and ``DeviceKV``'s placement.
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -588,6 +589,22 @@ def test_a_failed_rank_fails_the_world(tmp_path):
                   timeout_s=120, workdir=tmp_path)
     # stopped when the rank failed, not after the collective timeout
     assert time.monotonic() - t0 < COLLECTIVE_TIMEOUT.total_seconds()
+
+
+def test_a_stopped_world_stops_its_ranks(tmp_path):
+    """``stop`` set while the ranks run (a caller that runs the world in
+    a thread of its own gives up on it): the ranks are stopped and the
+    world fails at once, not at its timeout."""
+    stop = threading.Event()
+    timer = threading.Timer(1.0, stop.set)
+    timer.start()
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError,
+                       match="world failed: stopped by its caller"):
+        run_ranks(W.sleep_long, 2, backend="gloo", device="cpu",
+                  timeout_s=120, workdir=tmp_path, stop=stop)
+    timer.join()
+    assert time.monotonic() - t0 < 60
 
 
 def test_kv_shard_size_and_device_kv_placement(trees):

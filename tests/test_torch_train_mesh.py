@@ -35,7 +35,11 @@ by row:
   repeats the mesh run's losses, and one saved by one process resumed
   under the mesh repeats its losses (1e-5 relative: the two runs sum in
   other orders); resumed under the mesh again, it repeats the mesh
-  run's losses exactly.
+  run's losses exactly;
+* the dry run (``launch.dryrun.count_train_step`` on meta tensors at a
+  shape-only data 2 x model 2 gloo mesh) counts, for every rank, the
+  collectives the world's step issues, by kind, axis, operand bytes and
+  number (gpt2-medium in bf16 under remat "full", granite-moe).
 
 ``init_params(plan=)``, ``train_shardings`` and the placements need no
 ranks: ``tests/test_torch_shapes.py``.
@@ -61,7 +65,8 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.data import DataConfig, make_batches
 from repro_torch.launch import steps as TS
-from repro_torch.launch.mesh import Mesh, run_ranks
+from repro_torch.launch.dryrun import count_train_step
+from repro_torch.launch.mesh import Mesh, run_ranks, shape_mesh
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import leaves_with_paths
 from repro_torch.sharding.params import unshard_leaf
@@ -116,6 +121,18 @@ def _batches(vocab, n=3, B=4, S=16, seed=1):
                     "loss_mask": (rng.random((B, S)) > 0.3)
                     .astype(np.float32)})
     return out
+
+
+# the dry run's collectives against the world's, on each config's params
+# and first batch of its steps job
+DRY_ARCHS = ("gpt2-medium", "granite-moe-1b-a400m")
+
+
+def _dry_cfg(arch):
+    tc = _pair(arch)[1]
+    if arch == "gpt2-medium":      # bf16 compute under remat "full"
+        tc = dataclasses.replace(tc, dtype="bfloat16", remat="full")
+    return tc
 
 
 def _step_job(name):
@@ -241,6 +258,11 @@ def runs(tmp_path_factory):
         serve={"kind": "serve", "cfg": tc,
                "params": jobs["gpt2-medium"]["params"],
                "tokens": jobs["gpt2-medium"]["batches"][0]["tokens"]})
+    for arch in DRY_ARCHS:
+        jobs[f"collectives_{arch}"] = {
+            "kind": "collectives", "cfg": _dry_cfg(arch), "opt": OPT,
+            "params": jobs[arch]["params"],
+            "batch": jobs[arch]["batches"][0]}
     names = list(jobs)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         world = pool.submit(run_ranks, W.run_jobs, WORLD, backend="gloo",
@@ -448,3 +470,15 @@ def test_trainer_accumulates_the_global_microbatches(runs):
         assert [s for s, _ in got] == [s for s, _ in want]
         np.testing.assert_allclose([l for _, l in got], [l for _, l in want],
                                    **LOSS)
+
+
+@pytest.mark.parametrize("arch", DRY_ARCHS)
+def test_dry_run_counts_the_worlds_collectives(runs, arch):
+    jobs, out = runs[0], runs[1]
+    job = jobs[f"collectives_{arch}"]
+    for rank, got in enumerate(out[f"collectives_{arch}"]):
+        dry = count_train_step(job["cfg"], shape_mesh(DATA, MODEL, rank=rank,
+                                                      backend="gloo"),
+                               job["batch"], adamw(**job["opt"]))
+        assert dry.collectives == got
+        assert {axis for _, axis, _ in got} == {"data", "model"}
